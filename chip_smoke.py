@@ -7,25 +7,49 @@ Phases, each printing one JSON line; any failed check raises and the
 script exits non-zero without printing a result:
 
 1. environment: the card (``nvidia-smi``), torch and CUDA versions, and the
-   build of the hand-written CUDA kernel from this checkout's sources;
-2. kernels: the CUDA paged-attention kernel against its plain PyTorch
-   version on the card, in bf16 (rtol/atol 2e-2) and fp32 (2e-5, TF32 off),
-   at the demo, TinyLlama, main-path and long shapes, with its time beside
-   the plain version's, an SDPA call's (a yardstick the port never calls)
-   and the least time the card could take (the bound);
+   build of the three hand-written CUDA kernels from this checkout's
+   sources (one ``nvcc`` per source, all at once);
+2. kernels: each CUDA kernel against its plain PyTorch version on the
+   card, in bf16 and fp32 (TF32 off), with the tolerances of
+   ``tests/test_kernels.py`` -- paged decode attention (2e-2 / 2e-5) at the
+   demo, TinyLlama, main-path and long shapes; flash attention forward
+   (2e-2 / 2e-5, and bf16 within two bf16 ulps of the plain version) at a
+   B=4 prefill of 128 and of 2,048 tokens, ragged lengths, the demo heads
+   and one non-causal case; batched LoRA (5e-2 / 1e-4) at decode and
+   prefill widths, four adapters packed by ``pack_segments`` and a T off
+   the row tile; and both at every shape the main paths below give them
+   (``main_*`` cases: one per prefill group, as the executor groups
+   requests by chain and length bucket, and one per app-lora decode batch
+   width) -- each with its time beside the plain version's, a library
+   call's (a yardstick the port never calls: SDPA, or ``addmm`` with the
+   two low-rank products) and the least time the card could take (the
+   bound);
 3. engine: the block zoo's three apps (base, vicuna FPFT, app-lora PEFT)
    served through ``BlockEngine.submit/drain`` at TinyLlama-1.1B width
-   (22 layers, d_model 2048; random weights from seed 0), 12 requests; the
-   kernel's launch count is set to 0 just before and read just after, and
-   must equal the executor's paged-attention calls; then eight steady
-   decode steps of the same traffic under ``torch.profiler`` for the
-   device's busy share and the time by kernel;
-4. parity on the card: the fused megastep against the per-hop path, token
-   for token, and ``attn_impl="cuda"`` against ``attn_impl="ref"``, equal
-   wherever the ref run's top-2 logit margin is clear.
+   (22 layers, d_model 2048; random weights from seed 0), 12 requests;
+   every kernel's launch count is set to 0 just before and read just
+   after, and must equal the executor's calls (paged attention per decode
+   hop, flash attention per prefill hop, LoRA q/v per app-lora hop); then
+   eight steady decode steps of the same traffic under ``torch.profiler``
+   for the device's busy share and the time by kernel;
+4. long_prefill: eight requests of 512-2,000 prompt tokens across the
+   three apps, served once cold (timed apart), once as they come and once
+   with one app-lora request spilled to host memory and one base request
+   preempted for recompute after four decode steps; all three runs' tokens
+   must be bitwise equal, and the recompute's prefill runs at its unpadded
+   length (the flash kernel is then held against its plain version at
+   that length);
+5. parity on the card: the fused megastep against the per-hop path, token
+   for token, and ``attn_impl="cuda"`` against ``attn_impl="ref"`` (the
+   three kernels' plain versions), equal wherever the ref run's top-2
+   logit margin is clear.
 
-The last line is ``{"ok": true, "device": {...}}``.  Without a CUDA device
-the script exits non-zero before printing anything.
+The line before the last two gives each kernel's launches on the main
+paths, its largest error against its plain version at their shapes, and
+its times at the main-path shape named in ``case`` (all of its main-path
+shapes' times in ``main_path_ms``); the last line
+is ``{"ok": true, "device": {...}}``.  Without a CUDA device the script
+exits non-zero before printing anything.
 """
 import json
 import subprocess
@@ -43,6 +67,18 @@ import torch  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.core import peft  # noqa: E402
 from repro_torch.core.blocks import chain_prefill_fused  # noqa: E402
+from repro_torch.kernels import _build  # noqa: E402
+from repro_torch.kernels.batched_lora import kernel as lora_kernel  # noqa: E402
+from repro_torch.kernels.batched_lora.ops import (  # noqa: E402
+    batched_lora,
+    pack_segments,
+)
+from repro_torch.kernels.batched_lora.ref import batched_lora_ref  # noqa: E402
+from repro_torch.kernels.flash_attention import kernel as fa_kernel  # noqa: E402
+from repro_torch.kernels.flash_attention.ops import flash_attention  # noqa: E402
+from repro_torch.kernels.flash_attention.ref import (  # noqa: E402
+    flash_attention_ref,
+)
 from repro_torch.kernels.paged_attention import kernel as pa_kernel  # noqa: E402
 from repro_torch.kernels.paged_attention.ops import paged_attention  # noqa: E402
 from repro_torch.kernels.paged_attention.ref import (  # noqa: E402
@@ -51,20 +87,42 @@ from repro_torch.kernels.paged_attention.ref import (  # noqa: E402
 from repro_torch.serving.api import ServeRequest  # noqa: E402
 from repro_torch.serving.demo import build_demo_zoo  # noqa: E402
 from repro_torch.serving.engine import BlockEngine, EngineConfig  # noqa: E402
+from repro_torch.serving.executor import _bucket  # noqa: E402
 
 # H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s; dense bf16 tensor-core
 # FLOP/s; fp32 FLOP/s outside the tensor cores
 HBM_BW = 3.35e12
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
 TOL = {torch.bfloat16: 2e-2, torch.float32: 2e-5}
+LORA_TOL = {torch.bfloat16: 5e-2, torch.float32: 1e-4}
+# the flash kernel and its plain version both compute in fp32 and round
+# once, so in bf16 they also agree within two bf16 ulps of the output
+BF16_ULPS2 = dict(rtol=2.0 ** -6, atol=1e-5)
+LORA_RANK, LORA_BT = 8, 128  # peft.create_lora's rank; blocks' row tile
 CLEAR_MARGIN = 0.25  # top-2 logit gap (~16 bf16 ulps at |logit| 2-4)
 MODEL = "tinyllama-1.1b"
 MAX_LEN = 256
 PAGE = 16
 N_REQUESTS, GEN_LEN = 12, 32
 APPS = ("base", "vicuna", "app-lora")
-KERNEL_SOURCE = "src/repro_torch/kernels/paged_attention/csrc/paged_attention.cu"
-KERNEL_REPLACES = "src/repro/kernels/paged_attention/kernel.py:71"
+# kernel name: (wrapper module with its launch count, source, TPU kernel)
+KERNELS = {
+    "paged_attention": (
+        pa_kernel, "src/repro_torch/kernels/paged_attention/csrc/"
+        "paged_attention.cu", "src/repro/kernels/paged_attention/kernel.py:71"),
+    "flash_attention": (
+        fa_kernel, "src/repro_torch/kernels/flash_attention/csrc/"
+        "flash_attention.cu", "src/repro/kernels/flash_attention/kernel.py:73"),
+    "batched_lora": (
+        lora_kernel, "src/repro_torch/kernels/batched_lora/csrc/"
+        "batched_lora.cu", "src/repro/kernels/batched_lora/kernel.py:46"),
+}
+# executor counter each kernel's launches must equal on the main path
+KERNEL_COUNTERS = {"paged_attention": "attn_calls",
+                   "flash_attention": "prefill_attn_calls",
+                   "batched_lora": "lora_calls"}
+LONG_MAX, LONG_GEN, LONG_REQUESTS = 2048, 16, 8
+LONG_PROMPTS = (512, 2000)  # drawn from this range, plus one at its top
 DEVICE = "cuda"
 SPIN_CYCLES = 2_000_000  # ~1 ms at H100 clocks: longer than any enqueue here
 PROFILE_STEPS = 8
@@ -72,6 +130,24 @@ PROFILE_STEPS = 8
 
 def emit(obj) -> None:
     print(json.dumps(obj), flush=True)
+
+
+def reset_launches() -> None:
+    for module, _, _ in KERNELS.values():
+        module.launches = 0
+
+
+def read_launches() -> dict:
+    return {name: module.launches for name, (module, _, _) in KERNELS.items()}
+
+
+def check_launches(launches: dict, stats, what: str) -> None:
+    """Each kernel launched exactly as often as the executor issued its
+    calls, and at least once."""
+    for name, counter in KERNEL_COUNTERS.items():
+        if stats[counter] <= 0 or launches[name] != stats[counter]:
+            raise RuntimeError(f"{what}: {name} launches {launches[name]} != "
+                               f"executor {counter} {stats[counter]}")
 
 
 def nvidia_smi() -> str:
@@ -140,7 +216,12 @@ def bound(q, seq_lens, KVH, dtype):
               + 2 * total * KVH * hd * item            # K and V
               + 4 * sum(-(-n // PAGE) for n in seq_lens)  # table entries
               + 4 * B)                                 # seq_lens
-    flops = 4.0 * total * Hq * hd
+    return peak_bound(nbytes, 4.0 * total * Hq * hd, dtype)
+
+
+def peak_bound(nbytes: float, flops: float, dtype):
+    """(ms, "bytes" | "operations"): the larger of bytes over HBM
+    bandwidth and operations over the dtype's peak."""
     t_bytes, t_ops = nbytes / HBM_BW, flops / PEAK_FLOPS[dtype]
     return (max(t_bytes, t_ops) * 1e3,
             "bytes" if t_bytes >= t_ops else "operations")
@@ -188,7 +269,8 @@ def kernel_phase(cases, flush):
             lib_err = float((lib()[:, :, 0].float() - want.float()).abs().max())
             l_ms = time_ms(lib, iters, flush)
             b_ms, b_by = bound(q, seq_lens, KVH, dtype)
-            row = {"phase": "kernels", "case": name, "dtype": str(dtype),
+            row = {"phase": "kernels", "kernel": "paged_attention",
+                   "case": name, "dtype": str(dtype),
                    "B": B, "Hq": Hq, "KVH": KVH, "hd": hd, "page": PAGE,
                    "pages_per_seq": nps, "num_pages": num_pages,
                    "seq_len_sum": int(sum(seq_lens)),
@@ -199,6 +281,173 @@ def kernel_phase(cases, flush):
             emit(row)
             rows.append(row)
     return rows
+
+
+def flash_phase(cases, flush):
+    """Flash attention forward: the kernel on (B, S, H, hd) tensors seen
+    as (B, H, S, hd) views, as the serving path hands them over."""
+    rows = []
+    for name, (B, Hq, KVH, S, hd, causal) in cases.items():
+        for dtype in (torch.bfloat16, torch.float32):
+            g = torch.Generator(DEVICE).manual_seed(len(rows))
+            q, k, v = (torch.randn(B, S, h, hd, generator=g, device=DEVICE)
+                       .to(dtype).transpose(1, 2) for h in (Hq, KVH, KVH))
+            got = flash_attention(q, k, v, causal=causal, impl="cuda")
+            torch.cuda.synchronize()
+            want = flash_attention_ref(q, k, v, causal=causal)
+            err = float((got.float() - want.float()).abs().max())
+            torch.testing.assert_close(got.float(), want.float(),
+                                       rtol=TOL[dtype], atol=TOL[dtype])
+            if dtype == torch.bfloat16:
+                torch.testing.assert_close(got.float(), want.float(),
+                                           **BF16_ULPS2)
+            del want  # the (B, Hq, S, S) scores are gigabytes at S = 2048
+            iters = 5 if S >= 1024 else 20
+            k_ms = time_ms(lambda: flash_attention(q, k, v, causal=causal,
+                                                   impl="cuda"), iters, flush)
+            r_ms = time_ms(lambda: flash_attention_ref(q, k, v,
+                                                       causal=causal),
+                           iters, flush)
+            qc, kc, vc = q.contiguous(), k.contiguous(), v.contiguous()
+
+            def sdpa():  # library yardstick, timed only
+                return torch.nn.functional.scaled_dot_product_attention(
+                    qc, kc, vc, is_causal=causal, enable_gqa=True)
+
+            lib_err = float((sdpa().float() - got.float()).abs().max())
+            l_ms = time_ms(sdpa, iters, flush)
+            del qc, kc, vc
+            item = q.element_size()
+            pairs = S * (S + 1) / 2 if causal else S * S
+            b_ms, b_by = peak_bound(
+                (2 * B * Hq + 2 * B * KVH) * S * hd * item,
+                4.0 * B * Hq * hd * pairs, dtype)
+            row = {"phase": "kernels", "kernel": "flash_attention",
+                   "case": name, "dtype": str(dtype), "B": B, "Hq": Hq,
+                   "KVH": KVH, "S": S, "hd": hd, "causal": causal,
+                   "tol": TOL[dtype], "max_abs_err": err,
+                   "library_max_abs_err": lib_err, "kernel_ms": k_ms,
+                   "ref_ms": r_ms, "library_ms": l_ms, "bound_ms": b_ms,
+                   "bound_by": b_by}
+            emit(row)
+            rows.append(row)
+    return rows
+
+
+def lora_inputs(T, D, F, G, r, dtype, seed):
+    g = torch.Generator(DEVICE).manual_seed(seed)
+
+    def arr(*shape, scale=1.0):
+        return (torch.randn(*shape, generator=g, device=DEVICE)
+                * scale).to(dtype)
+
+    return (arr(T, D), arr(D, F, scale=D ** -0.5),
+            arr(G, D, r, scale=D ** -0.5), arr(G, r, F, scale=r ** -0.5))
+
+
+def lora_phase(cases, flush):
+    """Batched LoRA: G = 1 at the serving path's widths (TinyLlama q and v
+    projections, rank 8), four adapters in ragged segments packed by
+    ``pack_segments``, and a T off the 128-row tile."""
+    rows = []
+    for name, (T, D, F, G, r, bt) in cases.items():
+        for dtype in (torch.bfloat16, torch.float32):
+            x, w, a, b = lora_inputs(T, D, F, G, r, dtype, seed=len(rows))
+            if G == 1:
+                tiles = torch.zeros(-(-T // bt), dtype=torch.int32,
+                                    device=DEVICE)
+            else:  # T rows of G adapters in ragged segments, tile-aligned
+                gid = np.random.RandomState(len(rows)).randint(0, G, size=T)
+                order, tiles_np, padded = pack_segments(gid, bt=bt)
+                keep = torch.from_numpy(order >= 0).to(DEVICE)
+                x = x[torch.from_numpy(np.maximum(order, 0)).long()
+                      .to(DEVICE)] * keep[:, None].to(dtype)
+                tiles = torch.from_numpy(tiles_np).to(DEVICE)
+            rows_in = x.shape[0]
+            got = batched_lora(x, w, a, b, tiles, bt=bt, scaling=0.5,
+                               impl="cuda")
+            torch.cuda.synchronize()
+            want = batched_lora_ref(x, w, a, b, tiles, bt=bt, scaling=0.5)
+            err = float((got.float() - want.float()).abs().max())
+            torch.testing.assert_close(got.float(), want.float(),
+                                       rtol=LORA_TOL[dtype],
+                                       atol=LORA_TOL[dtype])
+            del want
+            iters = 10 if rows_in * F >= 1 << 24 else 50
+            k_ms = time_ms(lambda: batched_lora(
+                x, w, a, b, tiles, bt=bt, scaling=0.5, impl="cuda"), iters,
+                flush)
+            r_ms = time_ms(lambda: batched_lora_ref(
+                x, w, a, b, tiles, bt=bt, scaling=0.5), iters, flush)
+            l_ms = lib_err = None
+            if G == 1:
+                def addmm():  # library yardstick, timed only
+                    return torch.addmm(x @ w, x @ a[0], b[0], alpha=0.5)
+
+                lib_err = float((addmm().float() - got.float()).abs().max())
+                l_ms = time_ms(addmm, iters, flush)
+            item = x.element_size()
+            used = len(set(tiles.tolist()))
+            b_ms, b_by = peak_bound(
+                (rows_in * D + D * F + used * r * (D + F) + rows_in * F)
+                * item + 4 * tiles.numel(),
+                2.0 * rows_in * (D * F + r * (D + F)), dtype)
+            row = {"phase": "kernels", "kernel": "batched_lora",
+                   "case": name, "dtype": str(dtype), "T": rows_in, "D": D,
+                   "F": F, "G": G, "r": r, "bt": bt,
+                   "tol": LORA_TOL[dtype], "max_abs_err": err,
+                   "library_max_abs_err": lib_err, "kernel_ms": k_ms,
+                   "ref_ms": r_ms, "library_ms": l_ms, "bound_ms": b_ms,
+                   "bound_by": b_by}
+            emit(row)
+            rows.append(row)
+    return rows
+
+
+def prefill_groups(reqs) -> dict:
+    """The batched prefill calls the engine makes for ``reqs`` admitted
+    together, grouped as the executor groups them: one call per (chain,
+    length bucket), each app its own chain.  Returns {(app, bucket): B}."""
+    groups = {}
+    for r in reqs:
+        key = (r.app, _bucket(len(r.prompt_tokens)))
+        groups[key] = groups.get(key, 0) + 1
+    return groups
+
+
+def main_path_cases(cfg, paths):
+    """Flash and LoRA cases at the shapes the main paths give the kernels:
+    for each prefill group (B, bucket), flash at (B, bucket) and, for an
+    app-lora group, the q and v projections at T = B * bucket; for each
+    app-lora decode batch width T = 1 .. (the path's app-lora requests),
+    the q and v projections at T."""
+    H, KVH, hd = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
+    width = {"q": H * hd, "v": KVH * hd}
+    flash, lora = {}, {}
+    for reqs in paths:
+        for (app, S), B in sorted(prefill_groups(reqs).items()):
+            flash[f"main_B{B}_S{S}"] = (B, H, KVH, S, hd, True)
+            if app == "app-lora":
+                for proj, F in width.items():
+                    lora[f"main_prefill_{proj}_T{B * S}"] = (
+                        B * S, cfg.d_model, F, 1, LORA_RANK, LORA_BT)
+        for T in range(1, 1 + sum(r.app == "app-lora" for r in reqs)):
+            for proj, F in width.items():
+                lora[f"main_decode_{proj}_T{T}"] = (
+                    T, cfg.d_model, F, 1, LORA_RANK, LORA_BT)
+    return flash, lora
+
+
+def check_prefill_calls(stats, reqs, n_attn: int, what: str,
+                        recalcs: int = 0) -> None:
+    """The prefill groups the main-path cases were built from are the calls
+    the executor made: one flash launch per attention hop of each group's
+    chain call and of each recompute prefill."""
+    want = n_attn * (len(prefill_groups(reqs)) + recalcs)
+    if stats["prefill_attn_calls"] != want:
+        raise RuntimeError(f"{what}: prefill_attn_calls "
+                           f"{stats['prefill_attn_calls']} != {want} from the "
+                           f"derived groups {prefill_groups(reqs)}")
 
 
 # ---------------------------------------------------------------------------
@@ -260,11 +509,11 @@ def engine_phase(cfg, zoo, smi):
     serve(engine(zoo), traffic(cfg, n=3, gen_len=4, seed=1))
     eng = engine(zoo)
     torch.cuda.reset_peak_memory_stats()
-    pa_kernel.launches = 0
+    reset_launches()
     t0 = time.perf_counter()
     results = serve(eng, reqs)
     wall = time.perf_counter() - t0
-    launches = pa_kernel.launches
+    launches = read_launches()
     stats = dict(eng.stats)
     for r in results:
         if len(r.tokens) != GEN_LEN or r.tokens.min() < 0 \
@@ -273,9 +522,8 @@ def engine_phase(cfg, zoo, smi):
         if r.probs_last is None or not np.isfinite(r.probs_last).all() \
                 or abs(float(r.probs_last.sum()) - 1.0) > 1e-3:
             raise RuntimeError(f"rid {r.rid}: bad final distribution")
-    if stats["attn_calls"] <= 0 or launches != stats["attn_calls"]:
-        raise RuntimeError(f"paged_attention launches {launches} != "
-                           f"executor attention calls {stats['attn_calls']}")
+    check_launches(launches, stats, "engine")
+    check_prefill_calls(stats, reqs, cfg.num_layers, "engine")
     snap = eng.metrics.snapshot()["histograms"]
     tokens = sum(len(r.tokens) for r in results)
     row = {"phase": "engine", "model": MODEL, "layers": cfg.num_layers,
@@ -289,8 +537,8 @@ def engine_phase(cfg, zoo, smi):
            "group_calls_per_token": stats["group_calls"]
            / max(stats["decode_tokens"], 1),
            "host_syncs": stats["host_syncs"], "steps": stats["steps"],
-           "paged_attention_launches": launches,
-           "attn_calls": stats["attn_calls"],
+           "launches": launches,
+           "executor_calls": {c: stats[c] for c in KERNEL_COUNTERS.values()},
            "max_memory_allocated_bytes": torch.cuda.max_memory_allocated(),
            "card": smi}
     emit(row)
@@ -323,16 +571,20 @@ def profile_phase(zoo, reqs, step_wall_p50):
                         for e in prof.key_averages()
                         if e.device_type == DeviceType.CUDA), reverse=True)
     device_s = sum(us for us, _, _ in by_kernel) / 1e6 / PROFILE_STEPS
-    pa_s = sum(us for us, _, k in by_kernel
-               if "paged_attention" in k) / 1e6 / PROFILE_STEPS
-    gemm_s = sum(us for us, _, k in by_kernel
-                 if "nvjet" in k or "gemm" in k.lower()) / 1e6 / PROFILE_STEPS
+
+    def seconds(match):
+        return sum(us for us, _, k in by_kernel if match(k)) / 1e6 \
+            / PROFILE_STEPS
+
+    split = {name: seconds(lambda k, n=name: f"{n}_kernel" in k)
+             for name in KERNELS}
+    split["gemm"] = seconds(lambda k: "nvjet" in k or "gemm" in k.lower())
     row = {"phase": "profile", "steps": PROFILE_STEPS,
            "device_s_per_step": device_s, "step_wall_p50_s": step_wall_p50,
            "device_busy_share": device_s / step_wall_p50,
-           "paged_attention_s_per_step": pa_s,
-           "paged_attention_share_of_device": pa_s / max(device_s, 1e-12),
-           "gemm_share_of_device": gemm_s / max(device_s, 1e-12),
+           "s_per_step": split,
+           "share_of_device": {k: v / max(device_s, 1e-12)
+                               for k, v in split.items()},
            "kernel_launches_per_step": sum(n for _, n, _ in by_kernel)
            / PROFILE_STEPS,
            "top": [{"kernel": k[:80], "device_ms_per_step":
@@ -343,7 +595,135 @@ def profile_phase(zoo, reqs, step_wall_p50):
 
 
 # ---------------------------------------------------------------------------
-# phase 4: parity on the card
+# phase 4: long prompts, spill and recalc preemption
+# ---------------------------------------------------------------------------
+
+
+def long_traffic(cfg, seed=3):
+    """Eight requests, three of them app-lora, prompts drawn from
+    512-2,000 tokens plus one of exactly 2,000."""
+    rng = np.random.RandomState(seed)
+    apps = ["app-lora", "base", "vicuna"] * 3
+    lo, hi = LONG_PROMPTS
+    lens = [int(n) for n in rng.randint(lo, hi + 1, LONG_REQUESTS - 1)]
+    lens.append(hi)
+    return [ServeRequest(app=apps[i], gen_len=LONG_GEN,
+                         prompt_tokens=rng.randint(0, cfg.vocab_size, size=n)
+                         .astype(np.int32))
+            for i, n in enumerate(lens)]
+
+
+def long_engine(zoo):
+    return BlockEngine(zoo, max_len=LONG_MAX + LONG_GEN, config=EngineConfig(
+        max_active=LONG_REQUESTS, max_block_batch=LONG_REQUESTS,
+        page_size=PAGE, device=DEVICE))
+
+
+def long_prefill_phase(cfg, zoo, smi):
+    """The traffic once as it comes, then again with one app-lora request
+    spilled to host memory and one base request preempted for recompute
+    after four decode steps; the tokens must not change by a bit.
+
+    A first, cold run on its own engine goes before the measured one: the
+    first long-prompt prefill in the process also pays one-time costs
+    (the allocator growing to the long path's activations, library set-up)
+    whose size depends on what ran before it, so its TTFT is reported
+    apart (``cold_ttft_p95_s``) and its tokens must equal the measured
+    run's."""
+    reqs = long_traffic(cfg)
+    cold = serve(long_engine(zoo), reqs)
+    cold_ttft = max(r.info["ttft_s"] for r in cold)
+    eng = long_engine(zoo)
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    t0 = time.perf_counter()
+    plain = serve(eng, reqs)
+    wall = time.perf_counter() - t0
+    launches = {"unpreempted": read_launches()}
+    check_launches(launches["unpreempted"], eng.stats, "long_prefill")
+    check_prefill_calls(eng.stats, reqs, cfg.num_layers, "long_prefill")
+    peak = torch.cuda.max_memory_allocated()
+    ttft = sorted(r.info["ttft_s"] for r in plain)
+    prompt_tokens = sum(r.prompt_len for r in reqs)
+    prefill_s = ttft[-1]  # all eight are admitted and prefilled together
+    decoded = sum(len(r.tokens) for r in plain)
+
+    eng = long_engine(zoo)
+    reset_launches()
+    rids = [eng.submit(ServeRequest(app=r.app, gen_len=r.gen_len,
+                                    prompt_tokens=r.prompt_tokens))
+            for r in reqs]
+    done = {}
+    for _ in range(4):  # admission + prefill, then decode steps
+        done.update({r.rid: r for r in eng.step()})
+    spilled = rids[[r.app for r in reqs].index("app-lora")]
+    recalc = rids[[r.app for r in reqs].index("base")]
+    if not (eng.preempt(spilled, "spill") and eng.preempt(recalc, "recalc")):
+        raise RuntimeError("long_prefill: preemption found no resident "
+                           "request")
+    emitted = next(m["tokens_done"] for n, _, m in
+                   eng.tracer.trace(recalc).events if n == "preempt")
+    before = dict(read_launches(), calls=eng.stats["prefill_attn_calls"])
+    done.update({r.rid: r for r in eng.step()})  # both readmit here
+    readmit_flash = read_launches()["flash_attention"] - before[
+        "flash_attention"]
+    readmit_calls = eng.stats["prefill_attn_calls"] - before["calls"]
+    done.update({r.rid: r for r in eng.drain()})
+    torch.cuda.synchronize()
+    launches["preempted"] = read_launches()
+    stats = dict(eng.stats)
+    check_launches(launches["preempted"], stats, "long_prefill preempted")
+    check_prefill_calls(stats, reqs, cfg.num_layers,
+                        "long_prefill preempted", recalcs=1)
+    if sorted(done) != sorted(rids):
+        raise RuntimeError(f"long_prefill: requests lost "
+                           f"{sorted(set(rids) - set(done))}")
+    for r, c, want in zip(reqs, cold, plain):
+        if not np.array_equal(c.tokens, want.tokens):
+            raise RuntimeError(f"long_prefill: {r.app} tokens {c.tokens} on "
+                               f"a fresh engine != {want.tokens}")
+    for rid, r, want in zip(rids, reqs, plain):
+        if not np.array_equal(done[rid].tokens, want.tokens):
+            raise RuntimeError(f"long_prefill: rid {rid} ({r.app}) tokens "
+                               f"{done[rid].tokens} != unpreempted "
+                               f"{want.tokens}")
+    if stats["spills"] != 1 or stats["recalc_readmits"] != 1:
+        raise RuntimeError(f"long_prefill: spills {stats['spills']}, "
+                           f"recalc_readmits {stats['recalc_readmits']}")
+    recalc_events = [e["meta"] for e in done[recalc].info["trace"]["events"]
+                     if e["name"] == "recalc"]
+    recalc_len = reqs[rids.index(recalc)].prompt_len + emitted
+    n_attn = cfg.num_layers
+    if [e["tokens"] for e in recalc_events] != [recalc_len] \
+            or readmit_flash != n_attn or readmit_calls != n_attn:
+        raise RuntimeError(f"long_prefill: recalc prefill {recalc_events}, "
+                           f"{readmit_flash} flash launches, want one chain "
+                           f"of {n_attn} at the unpadded {recalc_len} tokens")
+    spill_bytes = [e["meta"]["kv_bytes"]
+                   for e in done[spilled].info["trace"]["events"]
+                   if e["name"] == "spill"]
+    row = {"phase": "long_prefill", "model": MODEL, "layers": cfg.num_layers,
+           "requests": len(reqs), "apps": [r.app for r in reqs],
+           "prompt_lens": [r.prompt_len for r in reqs], "gen_len": LONG_GEN,
+           "prompt_tokens": prompt_tokens, "wall_s": wall,
+           "ttft_p50_s": float(np.percentile(ttft, 50)),
+           "ttft_p95_s": float(np.percentile(ttft, 95)),
+           "cold_ttft_p95_s": cold_ttft,
+           "prefill_tok_per_s": prompt_tokens / prefill_s,
+           "decode_tok_per_s": decoded / max(wall - prefill_s, 1e-9),
+           "max_memory_allocated_bytes": peak, "spill_bytes": spill_bytes,
+           "spilled": {"rid": spilled, "app": "app-lora"},
+           "recalc": {"rid": recalc, "app": "base", "tokens": recalc_len,
+                      "flash_launches": readmit_flash},
+           "bitwise_equal": True, "launches": launches,
+           "executor_calls": {c: stats[c] for c in KERNEL_COUNTERS.values()},
+           "card": smi}
+    emit(row)
+    return launches, row
+
+
+# ---------------------------------------------------------------------------
+# phase 5: parity on the card
 # ---------------------------------------------------------------------------
 
 
@@ -375,7 +755,7 @@ def ref_margin(zoo, app, prefix):
              for s in chain.steps]
     tok = torch.as_tensor(prefix[None], dtype=torch.int32, device=DEVICE)
     lens = torch.tensor([len(prefix)], dtype=torch.int32, device=DEVICE)
-    _, probs, _ = chain_prefill_fused(steps, tok, lens)
+    _, probs, _ = chain_prefill_fused(steps, tok, lens, attn_impl="ref")
     top2 = torch.log(probs[0]).topk(2).values
     return float(top2[0] - top2[1])
 
@@ -418,17 +798,22 @@ def main():
     smi = nvidia_smi()
     print(smi, flush=True)
     t0 = time.perf_counter()
-    pa_kernel.load()
+    # one nvcc per source, all started together
+    _build.build_all(Path(ROOT / src) for _, src, _ in KERNELS.values())
+    for module, _, _ in KERNELS.values():
+        module.load()
     build_s = time.perf_counter() - t0
     emit({"phase": "env", "card": smi,
           "device": torch.cuda.get_device_name(0),
           "device_count": torch.cuda.device_count(),
           "python": sys.version.split()[0], "torch": torch.__version__,
           "cuda": torch.version.cuda, "kernel_build_s": build_s,
-          "kernel_library": str(pa_kernel.library_path().relative_to(ROOT))})
+          "kernel_libraries": [str(m.library_path().relative_to(ROOT))
+                               for m, _, _ in KERNELS.values()]})
 
     cfg = get_config(MODEL)
     G_kv, hd = cfg.num_kv_heads, cfg.resolved_head_dim
+    H = cfg.num_heads
     nps = MAX_LEN // PAGE
     engine_pages = 1 + 16 * nps * cfg.num_layers
     rng = np.random.RandomState(0)
@@ -439,19 +824,43 @@ def main():
     def lens(edge, n, hi):
         return edge + [int(x) for x in rng.randint(1, hi + 1, n)]
 
-    cases = {  # B, Hq, KVH, hd, pages per seq, seq_lens, pool pages
+    paged_cases = {  # B, Hq, KVH, hd, pages per seq, seq_lens, pool pages
         "demo": (8, 8, 4, 32, nps, lens(ragged, 4, MAX_LEN), 1 + 8 * nps),
-        "tinyllama": (16, cfg.num_heads, G_kv, hd, nps,
+        "tinyllama": (16, H, G_kv, hd, nps,
                       lens(ragged, 12, MAX_LEN), 1 + 16 * nps),
-        "main_path": (4, cfg.num_heads, G_kv, hd, nps, main_lens,
-                      engine_pages),
-        "long": (16, cfg.num_heads, G_kv, hd, 4096 // PAGE,
+        "main_path": (4, H, G_kv, hd, nps, main_lens, engine_pages),
+        "long": (16, H, G_kv, hd, 4096 // PAGE,
                  lens([1, 16, 17, 4096], 12, 4096), 1 + 16 * 4096 // PAGE),
+    }
+    main_flash, main_lora = main_path_cases(
+        cfg, (traffic(cfg), long_traffic(cfg)))
+    flash_cases = {  # B, Hq, KVH, S, hd, causal
+        "b4_s128": (4, H, G_kv, 128, hd, True),
+        "b4_s2048": (4, H, G_kv, LONG_MAX, hd, True),
+        "ragged_1": (2, H, G_kv, 1, hd, True),
+        "ragged_17": (2, H, G_kv, 17, hd, True),
+        "ragged_129": (2, H, G_kv, 129, hd, True),
+        "ragged_1000": (2, H, G_kv, 1000, hd, True),
+        "demo_heads": (4, 8, 4, 256, 32, True),
+        "non_causal": (2, H, G_kv, 256, hd, False),
+        **main_flash,
+    }
+    D, r = cfg.d_model, LORA_RANK
+    lora_cases = {  # T, D, F, G, r, bt
+        "decode_q": (16, D, H * hd, 1, r, LORA_BT),
+        "decode_v": (16, D, G_kv * hd, 1, r, LORA_BT),
+        "prefill_q": (4 * LONG_MAX, D, H * hd, 1, r, LORA_BT),
+        "packed_g4": (700, D, H * hd, 4, r, LORA_BT),
+        "ragged_t": (1000, D, G_kv * hd, 1, r, LORA_BT),
+        **main_lora,
     }
     flush = torch.empty(64 << 20, dtype=torch.uint8, device=DEVICE)
     t0 = time.perf_counter()
-    rows = kernel_phase(cases, flush)
+    rows = kernel_phase(paged_cases, flush)
+    rows += flash_phase(flash_cases, flush)
+    rows += lora_phase(lora_cases, flush)
     del flush
+    torch.cuda.empty_cache()
     phase_s = {"kernels": time.perf_counter() - t0}
 
     t0 = time.perf_counter()
@@ -461,29 +870,61 @@ def main():
     emit({"phase": "zoo", "model": MODEL, "build_s": zoo_s,
           "blocks": len(zoo.blocks), "zoo_bytes": zoo.zoo_bytes(),
           "equivalences": len(zoo.equivalences) // 2})
-    reqs, results, launches, eng_row = engine_phase(cfg, zoo, smi)
+    reqs, results, eng_launches, eng_row = engine_phase(cfg, zoo, smi)
     phase_s["engine"] = time.perf_counter() - t0
     t0 = time.perf_counter()
     profile_phase(zoo, reqs, eng_row["step_wall_p50_s"])
     phase_s["profile"] = time.perf_counter() - t0
     t0 = time.perf_counter()
+    long_launches, long_row = long_prefill_phase(cfg, zoo, smi)
+    # the recompute prefill's unpadded length, known only now
+    n = long_row["recalc"]["tokens"]
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device=DEVICE)
+    rows += flash_phase({f"main_recalc_B1_S{n}": (1, H, G_kv, n, hd, True)},
+                        flush)
+    del flush
+    phase_s["long_prefill"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
     fused_vs_per_hop(cfg, zoo)
     cuda_vs_ref(zoo, reqs, results)
     phase_s["parity"] = time.perf_counter() - t0
 
-    main = next(r for r in rows if r["case"] == "main_path"
-                and r["dtype"] == "torch.bfloat16")
-    emit({"kernels": [{
-        "name": "paged_attention", "route": "cuda", "source": KERNEL_SOURCE,
-        "replaces": KERNEL_REPLACES, "launches": launches,
-        "max_abs_err": max(r["max_abs_err"] for r in rows
-                           if r["case"] == "main_path"),
-        "ms": main["kernel_ms"], "plain_ms": main["ref_ms"],
-        "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
-        "library_ms": main["library_ms"]}]})
+    # each main-path run: counts set to 0 just before, read just after
+    by_path = {"engine": eng_launches, **{
+        f"long_prefill_{k}": v for k, v in long_launches.items()}}
+    # the shape each kernel's ms stands for: paged attention's decode
+    # batch; flash's costliest prefill call (the long path's largest
+    # group); LoRA's decode q projection at the engine's app-lora batch,
+    # where most of its launches run
+    (_, S), B = max(prefill_groups(long_traffic(cfg)).items(),
+                    key=lambda kv: kv[0][1] * kv[1])
+    n_lora = sum(q.app == "app-lora" for q in reqs)
+    main_case = {"paged_attention": "main_path",
+                 "flash_attention": f"main_B{B}_S{S}",
+                 "batched_lora": f"main_decode_q_T{n_lora}"}
+    line = []
+    for name, (_, source, replaces) in KERNELS.items():
+        mine = [x for x in rows if x["kernel"] == name
+                and x["case"].startswith("main")]
+        bf16 = next(x for x in mine if x["dtype"] == "torch.bfloat16"
+                    and x["case"] == main_case[name])
+        line.append({
+            "name": name, "route": "cuda", "source": source,
+            "replaces": replaces,
+            "launches": sum(p[name] for p in by_path.values()),
+            "launches_by_path": {p: v[name] for p, v in by_path.items()},
+            "case": main_case[name],
+            "max_abs_err": max(x["max_abs_err"] for x in mine),
+            "main_path_ms": {x["case"]: x["kernel_ms"] for x in mine
+                             if x["dtype"] == "torch.bfloat16"},
+            "ms": bf16["kernel_ms"], "plain_ms": bf16["ref_ms"],
+            "bound_ms": bf16["bound_ms"], "bound_by": bf16["bound_by"],
+            "library_ms": bf16["library_ms"]})
     emit({"phase": "done", "total_s": time.perf_counter() - t_start,
           "kernel_build_s": build_s, "zoo_build_s": zoo_s,
-          "phase_s": phase_s, "tok_per_s": eng_row["tok_per_s"]})
+          "phase_s": phase_s, "tok_per_s": eng_row["tok_per_s"],
+          "long_prefill_tok_per_s": long_row["prefill_tok_per_s"]})
+    emit({"kernels": line})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -16,7 +16,7 @@ import numpy as np
 import torch
 
 
-def leaf_to_torch(x: np.ndarray, device="cpu") -> torch.Tensor:
+def leaf_to_torch(x: np.ndarray, *, device) -> torch.Tensor:
     if not isinstance(x, np.ndarray):
         raise TypeError(f"bridge takes numpy arrays, got {type(x).__name__}")
     x = np.ascontiguousarray(x)
@@ -29,11 +29,12 @@ def leaf_to_torch(x: np.ndarray, device="cpu") -> torch.Tensor:
     return t.to(device)
 
 
-def to_torch(tree, device="cpu"):
+def to_torch(tree, *, device):
     """Map a numpy tree of dicts/lists/tuples to torch tensors on
-    ``device``, keeping its structure."""
+    ``device`` (required: nothing lands on the CPU unless asked), keeping
+    its structure."""
     if isinstance(tree, dict):
-        return {k: to_torch(v, device) for k, v in tree.items()}
+        return {k: to_torch(v, device=device) for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
-        return type(tree)(to_torch(v, device) for v in tree)
-    return leaf_to_torch(tree, device)
+        return type(tree)(to_torch(v, device=device) for v in tree)
+    return leaf_to_torch(tree, device=device)

@@ -27,6 +27,8 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.kernels.batched_lora.ops import batched_lora
+from repro_torch.kernels.flash_attention.ops import flash_attention
 from repro_torch.models import layers as L
 from repro_torch.models.transformer import _mlp_layer
 
@@ -110,6 +112,8 @@ class Block:
     meta: dict = field(default_factory=dict)
     _compute: Dict[torch.dtype, dict] = field(default_factory=dict,
                                               repr=False, compare=False)
+    _scaling: Dict[torch.dtype, float] = field(default_factory=dict,
+                                               repr=False, compare=False)
 
     @property
     def n_params(self) -> int:
@@ -140,7 +144,16 @@ class Block:
             out = {k: v if k in _FP32_AT_USE else v.to(dtype)
                    for k, v in self.params.items()}
             self._compute[dtype] = out
+            if self.kind == "lora":  # read off the device once, here
+                self._scaling[dtype] = float(out["scaling"])
         return out
+
+    def lora_scaling(self, dtype: torch.dtype) -> float:
+        """A LoRA block's scaling in ``dtype`` as a Python float, read when
+        the block is first cast: the LoRA kernel takes a float, and reading
+        the device tensor at every hop would sync the host each time."""
+        self.compute_params(dtype)
+        return self._scaling[dtype]
 
 
 # ---------------------------------------------------------------------------
@@ -159,16 +172,91 @@ def _out_proj(o, wo):
     return o.reshape(*o.shape[:-2], -1) @ wo.reshape(-1, wo.shape[-1])
 
 
-def _qkv(h, p, adapters):
+def _plain_qkv(h, p, adapters):
     q = _proj(h, p["wq"])
     k = _proj(h, p["wk"])
     v = _proj(h, p["wv"])
     return _peft_qkv(h, q, k, v, adapters)
 
 
+def _kernel_impl(x, attn_impl: str) -> Optional[str]:
+    """The kernel route ``attn_impl`` selects for a tensor: ``None`` for
+    ``auto`` on a CPU tensor (the plain code the JAX package runs on the
+    CPU), else ``"cuda"`` or ``"ref"`` (the kernel's plain version)."""
+    if attn_impl == "auto":
+        return "cuda" if x.is_cuda else None
+    if attn_impl not in ("ref", "cuda"):
+        raise ValueError(f"attn_impl {attn_impl!r}; one of auto, ref, cuda")
+    return attn_impl
+
+
+_LORA_BT = 128  # row tile of the LoRA kernel's adapter ids (one adapter)
+_ZERO_TILES: Dict[Tuple[torch.device, int], torch.Tensor] = {}
+
+
+def _zero_tiles(n: int, device) -> torch.Tensor:
+    """All-zeros int32 tile ids (one adapter), made once per (device, n)
+    on the device itself: no host-to-device copy per call."""
+    key = (torch.device(device), n)
+    t = _ZERO_TILES.get(key)
+    if t is None:
+        t = _ZERO_TILES[key] = torch.zeros(n, dtype=torch.int32,
+                                           device=device)
+    return t
+
+
+def _lora_proj(h, w, a, b, scaling: float, impl: str):
+    """h (B, S, D) @ w (D, H, hd) + scaling * (h @ a) @ b through the
+    batched-LoRA kernel with one adapter (G = 1)."""
+    D = h.shape[-1]
+    x = h.reshape(-1, D)
+    tiles = _zero_tiles(-(-x.shape[0] // _LORA_BT), x.device)
+    y = batched_lora(x, w.reshape(D, -1), a[None], b[None], tiles,
+                     bt=_LORA_BT, scaling=scaling, impl=impl)
+    return y.reshape(*h.shape[:-1], *w.shape[1:])
+
+
+def _qkv(h, p, adapters, attn_impl: str = "auto"):
+    """q, k, v projections with the hop's PEFT deltas.  Under a kernel
+    route a LoRA adapter's q and v go through the batched-LoRA kernel
+    (base product and low-rank delta in one fp32 sum); ``auto`` on a CPU
+    tensor computes the JAX package's products (``_peft_qkv``)."""
+    impl = _kernel_impl(h, attn_impl)
+    lora = [a for a in adapters if a.kind == "lora"]
+    if impl is None or not lora:
+        return _plain_qkv(h, p, adapters)
+    if len(lora) > 1:
+        raise NotImplementedError(
+            "the batched-LoRA kernel takes one LoRA adapter per hop")
+    a = lora[0]
+    ap = a.compute_params(h.dtype)
+    s = a.lora_scaling(h.dtype)
+    q = _lora_proj(h, p["wq"], ap["a_q"], ap["b_q"], s, impl)
+    k = _proj(h, p["wk"])
+    v = _lora_proj(h, p["wv"], ap["a_v"], ap["b_v"], s, impl)
+    # BitFit biases after the LoRA deltas, as in the reference's loop
+    return _peft_qkv(h, q, k, v, [x for x in adapters if x.kind != "lora"])
+
+
+def _prefill_attention(q, k, v, cfg, attn_impl: str):
+    """Causal prefill attention over (B, S, H, hd) tensors: the flash
+    kernel (or its plain version) on transposed views, or, for ``auto`` on
+    a CPU tensor, the JAX package's ``causal_attention``."""
+    impl = _kernel_impl(q, attn_impl)
+    if impl is None:
+        return L.causal_attention(q, k, v, chunk=cfg.attn_chunk,
+                                  window=cfg.sliding_window)
+    if cfg.sliding_window:
+        raise NotImplementedError(
+            "the flash-attention kernel has no sliding window")
+    o = flash_attention(q.transpose(1, 2), k.transpose(1, 2),
+                        v.transpose(1, 2), causal=True, impl=impl)
+    return o.transpose(1, 2)
+
+
 def _attn_sublayer(x, p, cfg, positions, adapters=()):
     h = L.rms_norm(x, p["ln1"], cfg.norm_eps)
-    q, k, v = _qkv(h, p, adapters)
+    q, k, v = _plain_qkv(h, p, adapters)
     q = L.apply_rope(q, positions, cfg.rope_theta)
     k = L.apply_rope(k, positions, cfg.rope_theta)
     o = L.causal_attention(q, k, v, chunk=cfg.attn_chunk,
@@ -230,11 +318,15 @@ def apply_block(block: Block, x, *, positions=None, adapters=(),
 
 
 def block_prefill_raw(block: Block, x, *, positions=None, adapters=(),
+                      attn_impl: str = "auto",
                       compute_dtype: torch.dtype = L.COMPUTE_DTYPE):
     """Prefill one block, returning the raw rotated K and V alongside the
     output (``(out, k_r, v)``; ``k_r``/``v`` are ``None`` for blocks without
     attention state).  The serving engine scatters the raw K/V into its
-    shared page pool."""
+    shared page pool.  ``attn_impl`` routes attention and LoRA q/v through
+    the flash-attention and batched-LoRA kernels (``cuda``), their plain
+    versions (``ref``), or by device (``auto``: kernels on a CUDA tensor,
+    the JAX package's plain code on a CPU tensor)."""
     if block.kind not in ATTENTION_KINDS:
         out = apply_block(block, x, positions=positions, adapters=adapters,
                           compute_dtype=compute_dtype)
@@ -243,11 +335,10 @@ def block_prefill_raw(block: Block, x, *, positions=None, adapters=(),
     p = block.compute_params(x.dtype)
     positions = _positions(x, positions)
     h = L.rms_norm(x, p["ln1"], cfg.norm_eps)
-    q, k, v = _qkv(h, p, adapters)
+    q, k, v = _qkv(h, p, adapters, attn_impl)
     q = L.apply_rope(q, positions, cfg.rope_theta)
     k_r = L.apply_rope(k, positions, cfg.rope_theta)
-    o = L.causal_attention(q, k_r, v, chunk=cfg.attn_chunk,
-                           window=cfg.sliding_window)
+    o = _prefill_attention(q, k_r, v, cfg, attn_impl)
     out = x + _out_proj(o, p["wo"])
     if block.kind == "layer":
         out = _ffn_sublayer(out, p, cfg, adapters)
@@ -265,7 +356,8 @@ def block_decode_paged(block: Block, x, k_pages, v_pages, block_tables,
 
     Writes the new token's K/V into the pool slabs in place and attends
     over the pages through the paged-attention kernel (CUDA on the card,
-    the plain version on the CPU).  Returns (out, k_pages, v_pages).
+    the plain version on the CPU); LoRA q/v follow ``attn_impl`` as in
+    ``block_prefill_raw``.  Returns (out, k_pages, v_pages).
     """
     if block.kind not in ATTENTION_KINDS:
         return (apply_block(block, x, adapters=adapters,
@@ -276,7 +368,7 @@ def block_decode_paged(block: Block, x, k_pages, v_pages, block_tables,
     p = block.compute_params(x.dtype)
     positions = kv_len[:, None]
     h = L.rms_norm(x, p["ln1"], cfg.norm_eps)
-    q, k, v = _qkv(h, p, adapters)
+    q, k, v = _qkv(h, p, adapters, attn_impl)
     q = L.apply_rope(q, positions, cfg.rope_theta)
     k = L.apply_rope(k, positions, cfg.rope_theta)
     o, k_pages, v_pages = paged_decode_step(
@@ -363,13 +455,14 @@ def chain_decode_fused(steps, pool_index, tokens, pools_k, pools_v, tables,
     return next_tokens, probs, tuple(pools_k), tuple(pools_v), kv_len + 1
 
 
-def chain_prefill_fused(steps, tokens, lens, *,
+def chain_prefill_fused(steps, tokens, lens, *, attn_impl: str = "auto",
                         compute_dtype: torch.dtype = L.COMPUTE_DTYPE):
     """Batched multi-request prefill through a whole chain.
 
     tokens: (B, S) ids right-padded to the bucket length; lens: (B,) true
     prompt lengths.  Causality makes the padded tail inert for every valid
     position, so per-row results match the unpadded single-request path.
+    ``attn_impl`` routes each hop as in ``block_prefill_raw``.
 
     Returns (next_tokens, probs, kvs) where kvs[i] = (k_r, v) raw rotated
     K/V (B, S, KVH, hd) for the i-th attention hop.
@@ -378,6 +471,7 @@ def chain_prefill_fused(steps, tokens, lens, *,
     kvs = []
     for block, adapters in steps:
         x, k_r, v = block_prefill_raw(block, x, adapters=adapters,
+                                      attn_impl=attn_impl,
                                       compute_dtype=compute_dtype)
         if k_r is not None:
             kvs.append((k_r, v))

@@ -2,11 +2,8 @@
 
 Replaces ``repro.kernels.paged_attention.kernel.paged_attention`` (the
 Pallas TPU kernel).  The source is ``csrc/paged_attention.cu`` (design and
-bound in its header); it is compiled with ``nvcc`` for ``sm_90a`` into a
-shared library with a plain C interface at first use, from the sources in
-this package only, into ``repro_torch/_build/`` (listed in .gitignore).
-The library's file name carries a hash of the source, so an edited source
-is rebuilt and a built one is reused.
+bound in its header); ``kernels/_build.py`` compiles it with ``nvcc`` for
+``sm_90a`` at first use, from the sources in this package only.
 
 Nothing here imports or builds anything at module import: the CPU tests
 import every module of the port.
@@ -14,21 +11,14 @@ import every module of the port.
 from __future__ import annotations
 
 import ctypes
-import functools
-import hashlib
 import math
-import os
-import shutil
-import subprocess
-import tempfile
 from pathlib import Path
 
 import torch
 
-_PKG = Path(__file__).resolve().parent
-SOURCE = _PKG / "csrc" / "paged_attention.cu"
-BUILD_DIR = _PKG.parents[1] / "_build"
-ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
+from repro_torch.kernels import _build
+
+SOURCE = Path(__file__).resolve().parent / "csrc" / "paged_attention.cu"
 HEAD_DIMS = (32, 64, 128)
 MAX_GROUP = 16  # query heads per KV head (kMaxG in the source)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -38,57 +28,20 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 launches = 0
 
 
-def _nvcc() -> str:
-    found = shutil.which("nvcc")
-    if found:
-        return found
-    for root in (os.environ.get("CUDA_HOME"), "/usr/local/cuda"):
-        if root and (Path(root) / "bin" / "nvcc").exists():
-            return str(Path(root) / "bin" / "nvcc")
-    raise RuntimeError("nvcc not found: the CUDA kernels build only on a "
-                       "machine with the CUDA toolkit")
-
-
-def nvcc_command(src: Path, out: Path, nvcc: str = "nvcc") -> list:
-    """The compile line: sm_90a, a shared library with a C interface."""
-    return [nvcc, *ARCH_FLAGS, "-std=c++17", "-O3", "-shared",
-            "-Xcompiler", "-fPIC", "-o", str(out), str(src)]
-
-
 def library_path() -> Path:
-    digest = hashlib.sha1(SOURCE.read_bytes()).hexdigest()[:12]
-    return BUILD_DIR / f"libpaged_attention-{digest}.so"
+    return _build.library_path(SOURCE)
 
 
-def build() -> Path:
-    """Compile the library unless this source's build exists already."""
-    out = library_path()
-    if out.exists():
-        return out
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    try:
-        proc = subprocess.run(nvcc_command(SOURCE, Path(tmp), _nvcc()),
-                              capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed for {SOURCE}:\n{proc.stderr}")
-        os.replace(tmp, out)  # atomic: concurrent builders never see half
-    finally:
-        if os.path.exists(tmp):
-            os.remove(tmp)
-    return out
-
-
-@functools.cache
-def load() -> ctypes.CDLL:
-    """Build (if needed) and load the library; cached for the process."""
-    lib = ctypes.CDLL(str(build()))
+def _bind(lib: ctypes.CDLL) -> None:
     fn = lib.paged_attention_fwd
     fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [
         ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
     fn.restype = ctypes.c_int
-    return lib
+
+
+def load() -> ctypes.CDLL:
+    """Build (if needed) and load the library; cached for the process."""
+    return _build.load(SOURCE, _bind)
 
 
 def check_inputs(q, k_pages, v_pages, block_tables, seq_lens) -> None:

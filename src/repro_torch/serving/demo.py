@@ -62,7 +62,7 @@ def _on_device(tree, device):
         return [_on_device(v, device) for v in tree]
     if isinstance(tree, torch.Tensor):
         return tree.to(device)
-    return to_torch(np.asarray(tree), device)
+    return to_torch(np.asarray(tree), device=device)
 
 
 def zoo_from_params(cfg: ModelConfig, base: dict, ft: dict,

@@ -58,7 +58,10 @@ class EngineConfig:
     max_block_batch: int = 16   # per-block batch cap (paper §5.2)
     page_size: int = 16         # KV pool page, in tokens
     num_pages: int = 0          # 0 -> sized from max_active * max_len
-    attn_impl: str = "auto"     # auto (by device) | ref | cuda
+    attn_impl: str = "auto"     # every kernel of the port (paged decode
+    #   attention, flash prefill attention, batched LoRA): auto = the CUDA
+    #   kernels on the card and the JAX package's plain code on the CPU;
+    #   ref = the kernels' plain PyTorch versions; cuda = the kernels
     policy: str = "fcfs"        # admission order: fcfs | priority
     preemption: bool = True     # pressure-driven slot eviction (priority)
     preempt_strategy: str = "auto"  # auto | spill | recalc (§5.1)
@@ -99,7 +102,8 @@ class BlockEngine(Server):
                 "speculative decoding is not ported yet: see the speculation "
                 "slice in ROADMAP.md")
         if c.attn_impl not in ATTN_IMPLS:
-            raise ValueError(f"attn_impl {c.attn_impl!r}; one of {ATTN_IMPLS}")
+            raise ValueError(f"attn_impl {c.attn_impl!r} selects the kernels; "
+                             f"one of {ATTN_IMPLS}")
         self.device = torch.device(c.device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("EngineConfig.device='cuda' but no CUDA device "
@@ -117,7 +121,8 @@ class BlockEngine(Server):
         self.tracer = Tracer(clock=time.perf_counter)
         self.metrics = MetricsRegistry()
         for name in ("steps", "prefills", "decode_tokens", "group_calls",
-                     "host_syncs", "attn_calls", "preemptions", "spills",
+                     "host_syncs", "attn_calls", "prefill_attn_calls",
+                     "lora_calls", "preemptions", "spills",
                      "recalc_readmits", "completed", "tokens_emitted"):
             self.metrics.counter(name)  # pre-register: snapshots start at 0
         self.metrics.set_gauge("max_block_batch", c.max_block_batch)

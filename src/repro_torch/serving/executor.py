@@ -49,6 +49,12 @@ def _bucket(n: int, lo: int = 8) -> int:
     return b
 
 
+def _lora_projections(steps) -> int:
+    """q and v LoRA projections one call of ``steps`` issues."""
+    return 2 * sum(1 for b, adapters in steps if b.has_kv
+                   for a in adapters if a.kind == "lora")
+
+
 @dataclass
 class DecodeState:
     """Device-resident decode state for one fused group (DESIGN.md §2).
@@ -97,6 +103,11 @@ class BlockExecutor:
         # paged-attention calls issued (one per attention hop per call): the
         # number of kernel launches the decode path should account for
         self._c_attn_calls = self.metrics.counter("attn_calls")
+        # prefill attention calls (one per attention hop per prefill call)
+        # and LoRA projections (q and v: two per LoRA hop per call, prefill
+        # and decode): the flash and batched-LoRA kernels' launches
+        self._c_prefill_attn_calls = self.metrics.counter("prefill_attn_calls")
+        self._c_lora_calls = self.metrics.counter("lora_calls")
         # per-block batch occupancy: every batched device call observes its
         # batch width (compare p50/mean against EngineConfig.max_block_batch)
         self._h_group_batch = self.metrics.histogram("group_batch")
@@ -111,6 +122,11 @@ class BlockExecutor:
         # finish/preempt/restore and the cap bounds membership churn
         self.table_cache_max = 128
         self._table_cache: OrderedDict[Tuple, torch.Tensor] = OrderedDict()
+
+    def _count_prefill(self, steps) -> None:
+        """Count one prefill call's attention hops and LoRA projections."""
+        self._c_prefill_attn_calls.inc(sum(b.has_kv for b, _ in steps))
+        self._c_lora_calls.inc(_lora_projections(steps))
 
     def invalidate_tables(self) -> None:
         self._table_cache.clear()
@@ -154,9 +170,11 @@ class BlockExecutor:
         and scattering raw K/V into the pools.  With ``sample=False`` the
         lm_head output is discarded — the recompute-on-readmit path rebuilds
         KV for an already-sampled prefix and must keep the pending token."""
-        x = self._tensor(tokens)[None]  # (1, S)
+        x = self._tensor(tokens)[None]  # (1, S), unpadded
+        self._count_prefill(state.steps)
         for i, (block, adapters) in enumerate(state.steps):
             x, k_r, v = block_prefill_raw(block, x, adapters=adapters,
+                                          attn_impl=self.attn_impl,
                                           compute_dtype=self.compute_dtype)
             if k_r is not None:
                 _, pool = kv.pool_for(block)
@@ -191,9 +209,10 @@ class BlockExecutor:
         for i, s in enumerate(states):
             tok[i, :s.prompt_len] = s.prompt_tokens
         lens = self._tensor([s.prompt_len for s in states])
+        self._count_prefill(states[0].steps)
         nxt, probs, kvs = chain_prefill_fused(
             states[0].steps, self._tensor(tok), lens,
-            compute_dtype=self.compute_dtype)
+            attn_impl=self.attn_impl, compute_dtype=self.compute_dtype)
         hop = 0
         for i, (block, _) in enumerate(states[0].steps):
             if not block.has_kv:
@@ -328,6 +347,7 @@ class BlockExecutor:
         pv = tuple(p.v_pages for p in pools)
         self._c_group_calls.inc()
         self._c_attn_calls.inc(n_attn)
+        self._c_lora_calls.inc(_lora_projections(states[0].steps))
         self._h_group_batch.observe(len(states))
         nxt, probs, _, _, kv_len = fn(ds.next_token, pk, pv, ds.tables,
                                       ds.kv_len)
@@ -368,6 +388,7 @@ class BlockExecutor:
         fn = self.block_fn(block, adapters)
         x = torch.cat([xs[r] for r in rids], dim=0)
         self._c_group_calls.inc()
+        self._c_lora_calls.inc(_lora_projections([(block, adapters)]))
         self._h_group_batch.observe(len(rids))
         if block.has_kv:
             _, pool = kv.pool_for(block)

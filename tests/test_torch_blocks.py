@@ -90,7 +90,8 @@ def _j(x, dtype):
 
 
 def _t(x, dtype):
-    return to_torch(np.asarray(x, np.float32)).to(getattr(torch, dtype))
+    return to_torch(np.asarray(x, np.float32), device="cpu").to(
+        getattr(torch, dtype))
 
 
 def _close(got, want, dtype, what=""):
@@ -140,8 +141,9 @@ def test_seed0_foundation_block_id():
 
     base, _, _ = jax_demo_trees()
     layer0 = {k: v[0] for k, v in base["layers"].items()}
-    assert f"la-{tree_hash(to_torch(layer0))}" == "la-cd406050c544934d"
-    assert tree_hash(layer0) == tree_hash(to_torch(layer0))
+    port_layer0 = to_torch(layer0, device="cpu")
+    assert f"la-{tree_hash(port_layer0)}" == "la-cd406050c544934d"
+    assert tree_hash(layer0) == tree_hash(port_layer0)
 
 
 # ---------------------------------------------------------------------------
@@ -322,3 +324,103 @@ def test_chain_decode_fused_matches_jax(zoos, app, dtype):
         _close(torch.log(got[1]), np.log(np.asarray(want[1])), dtype,
                "log probs")
     _assert_tokens_agree(got[0].numpy(), np.log(np.asarray(want[1]) + 1e-30))
+
+
+# ---------------------------------------------------------------------------
+# kernel routes on the CPU: attn_impl="ref" sends prefill attention through
+# the flash kernel's plain version and LoRA q/v through the batched-LoRA
+# kernel's plain version; both must still match the JAX package
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("app,idx", [("base", 2), ("app-lora", 3),
+                                     ("vicuna", 2)])
+def test_block_prefill_raw_ref_route_matches_jax(zoos, app, idx, dtype):
+    from repro.core.blocks import block_prefill_raw as j_prefill
+    from repro_torch.core.blocks import block_prefill_raw as t_prefill
+
+    jz, pz = zoos
+    (jb, ja), (tb, ta) = _steps(jz, app)[idx], _steps(pz, app)[idx]
+    x = np.random.RandomState(8).standard_normal(
+        (2, 13, jb.d_in)).astype(np.float32)
+    want = j_prefill(jb, _j(x, dtype), adapters=ja)
+    got = t_prefill(tb, _t(x, dtype), adapters=ta, attn_impl="ref")
+    for g, w, what in zip(got, want, ("out", "k_r", "v")):
+        _close(g, w, dtype, what)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape", [(2, 13), (5, 1)])
+def test_qkv_lora_ref_route_matches_jax_peft_qkv(zoos, shape, dtype):
+    """An app-lora hop's q/k/v through the batched-LoRA plain version
+    against JAX's projections plus ``_peft_qkv``, prefill-shaped and
+    decode-shaped."""
+    from repro.core.blocks import _peft_qkv as j_peft
+    from repro_torch.core.blocks import _qkv
+
+    jz, pz = zoos
+    (jb, ja), (tb, ta) = _steps(jz, "app-lora")[3], _steps(pz, "app-lora")[3]
+    assert [a.kind for a in ta] == ["lora"]
+    h = np.random.RandomState(4).standard_normal(
+        (*shape, jb.d_in)).astype(np.float32)
+    jh = _j(h, dtype)
+    p = jb.params
+    jq, jk, jv = (jnp.einsum("bsd,dhk->bshk", jh, p[w].astype(jh.dtype))
+                  for w in ("wq", "wk", "wv"))
+    want = j_peft(jh, jq, jk, jv, ja)
+    got = _qkv(_t(h, dtype), tb.compute_params(getattr(torch, dtype)), ta,
+               attn_impl="ref")
+    for g, w, what in zip(got, want, "qkv"):
+        assert g.dtype == getattr(torch, dtype)
+        _close(g, w, dtype, what)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("app", ["base", "vicuna", "app-lora"])
+def test_chain_prefill_fused_ref_route_matches_jax(zoos, app, dtype):
+    from repro.core.blocks import chain_prefill_fused as j_prefill
+    from repro_torch.core.blocks import chain_prefill_fused as t_prefill
+
+    rng = np.random.RandomState(12)
+    tok = rng.randint(0, 512, size=(3, 16)).astype(np.int32)
+    lens = np.asarray([16, 7, 13], np.int32)
+    jsteps, tsteps, jx, tx, cdt = _chain_inputs(zoos, app, dtype, tok)
+    want = j_prefill(jsteps, jx, jnp.asarray(lens))
+    got = t_prefill(tsteps, tx, torch.from_numpy(lens), attn_impl="ref",
+                    compute_dtype=cdt)
+    _check_chain(got[1], want[1], got[2], want[2], dtype)
+    _assert_tokens_agree(got[0].numpy(), np.log(np.asarray(want[1]) + 1e-30))
+
+
+def test_lora_scaling_is_read_once_as_a_float(zoos):
+    _, pz = zoos
+    (_, (lora,)) = _steps(pz, "app-lora")[3]
+    assert lora.kind == "lora"
+    s = lora.lora_scaling(torch.bfloat16)
+    assert isinstance(s, float)
+    assert s == float(lora.params["scaling"])
+    assert lora._scaling[torch.bfloat16] == s  # cached beside the cast
+
+
+def test_kernel_routes_refuse_what_the_kernels_do_not_take(zoos):
+    import dataclasses
+
+    from repro_torch.core.blocks import Block, block_prefill_raw
+
+    _, pz = zoos
+    (tb, ta) = _steps(pz, "app-lora")[3]
+    x = torch.zeros(1, 5, tb.d_in)
+    with pytest.raises(ValueError, match="CUDA"):  # cuda on a CPU tensor
+        block_prefill_raw(tb, x, adapters=ta, attn_impl="cuda")
+    with pytest.raises(ValueError):
+        block_prefill_raw(tb, x, attn_impl="pallas")
+    with pytest.raises(NotImplementedError, match="one LoRA"):
+        block_prefill_raw(tb, x, adapters=ta * 2, attn_impl="ref")
+    windowed = Block(**{f.name: getattr(tb, f.name)
+                        for f in dataclasses.fields(Block)
+                        if not f.name.startswith("_")})
+    windowed.cfg = dataclasses.replace(tb.cfg, sliding_window=4)
+    with pytest.raises(NotImplementedError, match="sliding window"):
+        block_prefill_raw(windowed, x, attn_impl="ref")
+    block_prefill_raw(windowed, x)  # auto on the CPU: the plain code

@@ -1,5 +1,6 @@
-"""The port's hand-written CUDA kernels against their plain PyTorch
-versions, on the card.  These tests need an NVIDIA GPU and ``nvcc``: they
+"""The port's hand-written CUDA kernels (paged decode attention, flash
+attention forward, batched LoRA) against their plain PyTorch versions, on
+the card.  These tests need an NVIDIA GPU and ``nvcc``: they
 are marked ``cuda`` and skip without a card.  This file imports no JAX, so
 it runs on a machine with only PyTorch:
 
@@ -9,6 +10,12 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch.kernels.batched_lora import kernel as lora_kernel
+from repro_torch.kernels.batched_lora.ops import batched_lora, pack_segments
+from repro_torch.kernels.batched_lora.ref import batched_lora_ref
+from repro_torch.kernels.flash_attention import kernel as flash_kernel
+from repro_torch.kernels.flash_attention.ops import flash_attention
+from repro_torch.kernels.flash_attention.ref import flash_attention_ref
 from repro_torch.kernels.paged_attention import kernel as t_kernel
 from repro_torch.kernels.paged_attention.ops import paged_attention
 from repro_torch.kernels.paged_attention.ref import paged_attention_ref
@@ -18,6 +25,8 @@ torch.backends.cudnn.allow_tf32 = False
 
 TOL = {"float32": dict(rtol=2e-5, atol=2e-5),
        "bfloat16": dict(rtol=2e-2, atol=2e-2)}
+LORA_TOL = {"float32": dict(rtol=1e-4, atol=1e-4),
+            "bfloat16": dict(rtol=5e-2, atol=5e-2)}
 
 SHAPES = [  # B, Hq, KVH, hd, page, pages_per_seq
     (2, 8, 2, 64, 128, 4),    # tests/test_kernels.py
@@ -82,3 +91,190 @@ def test_paged_attention_kernel_rejects_bad_inputs(card):
     with pytest.raises(ValueError):
         paged_attention(q, k[..., :16].contiguous(), v[..., :16].contiguous(),
                         tables, lens, impl="cuda")
+
+
+# ---------------------------------------------------------------------------
+# flash attention forward
+# ---------------------------------------------------------------------------
+
+FLASH_SHAPES = [  # B, Hq, KVH, S, hd
+    (2, 8, 2, 256, 64),    # tests/test_kernels.py: GQA
+    (1, 4, 4, 128, 32),    # MHA
+    (1, 4, 1, 512, 128),   # MQA
+    (2, 8, 4, 100, 32),    # demo heads, ragged S
+    (2, 32, 4, 129, 64),   # TinyLlama heads, one past a tile
+    (3, 32, 4, 1, 64),     # a single position
+    (1, 32, 4, 17, 64),
+]
+
+
+def _flash_inputs(B, Hq, KVH, S, hd, dtype, dev, seed=0):
+    """Seeded (B, S, H, hd) tensors seen as (B, H, S, hd) views, the layout
+    the serving path hands the kernel."""
+    rng = np.random.RandomState(seed)
+    q, k, v = (torch.from_numpy(rng.standard_normal((B, S, h, hd))
+                                .astype(np.float32)).to(dev, dtype)
+               .transpose(1, 2) for h in (Hq, KVH, KVH))
+    return q, k, v
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape", FLASH_SHAPES)
+def test_flash_attention_kernel_matches_ref(card, shape, dtype, causal):
+    q, k, v = _flash_inputs(*shape, getattr(torch, dtype), card)
+    before = flash_kernel.launches
+    got = flash_attention(q, k, v, causal=causal)  # auto: CUDA -> kernel
+    torch.cuda.synchronize()
+    assert flash_kernel.launches == before + 1
+    want = flash_attention_ref(q, k, v, causal=causal)
+    assert got.dtype == q.dtype and got.shape == q.shape
+    assert got.stride() == q.stride()  # the output follows q's layout
+    np.testing.assert_allclose(got.float().cpu().numpy(),
+                               want.float().cpu().numpy(), **TOL[dtype])
+    contiguous = flash_attention(q.contiguous(), k.contiguous(),
+                                 v.contiguous(), causal=causal, impl="cuda")
+    torch.testing.assert_close(contiguous, got, rtol=0, atol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_attention_kernel_prefix_is_bitwise(card, dtype):
+    """A causal prefix computed alone equals the same rows of a longer
+    call bit for bit: the recompute-on-readmit prefill relies on it."""
+    q, k, v = _flash_inputs(2, 32, 4, 300, 64, getattr(torch, dtype), card)
+    full = flash_attention(q, k, v, impl="cuda")
+    for n in (1, 63, 65, 200):
+        part = flash_attention(q[:, :, :n], k[:, :, :n], v[:, :, :n],
+                               impl="cuda")
+        torch.testing.assert_close(part, full[:, :, :n], rtol=0, atol=0)
+
+
+@pytest.mark.cuda
+def test_flash_attention_kernel_rejects_bad_inputs(card):
+    q, k, v = _flash_inputs(1, 8, 4, 32, 32, torch.float32, card)
+    with pytest.raises(TypeError):
+        flash_attention(q.half(), k.half(), v.half(), impl="cuda")
+    with pytest.raises(ValueError):  # head_dim 16
+        flash_attention(q[..., :16], k[..., :16], v[..., :16], impl="cuda")
+    with pytest.raises(ValueError):  # the head dim is not contiguous
+        flash_attention(q.transpose(2, 3), k.transpose(2, 3),
+                        v.transpose(2, 3), impl="cuda")
+    with pytest.raises(ValueError):  # KVH does not divide Hq
+        flash_attention(q[:, :6], k[:, :4], v[:, :4], impl="cuda")
+    with pytest.raises(ValueError):
+        flash_attention(q, k.cpu(), v.cpu(), impl="cuda")
+
+
+# ---------------------------------------------------------------------------
+# batched LoRA
+# ---------------------------------------------------------------------------
+
+LORA_SHAPES = [  # T, D, F, G, r, bt
+    (256, 128, 256, 4, 16, 128),   # tests/test_kernels.py
+    (512, 256, 512, 2, 8, 128),
+    (128, 64, 128, 1, 4, 128),
+    (100, 64, 72, 2, 8, 64),       # T and F off the tiles
+    (16, 2048, 256, 1, 8, 128),    # TinyLlama decode, v projection
+    (4, 2048, 2048, 1, 8, 128),    # TinyLlama decode, q projection
+    (3, 200, 72, 2, 64, 64),       # split path: rank 64, D off the chunk
+    (250, 200, 136, 3, 8, 64),     # split path over four adapters' tiles
+    (300, 256, 128, 3, 64, 128),   # rank 64
+]
+
+
+def _lora_inputs(T, D, F, G, r, bt, dtype, dev, seed=2):
+    rng = np.random.RandomState(seed)
+
+    def arr(shape, scale):
+        return torch.from_numpy((rng.standard_normal(shape) * scale)
+                                .astype(np.float32)).to(dev, dtype)
+
+    x = arr((T, D), 1.0)
+    w = arr((D, F), 1 / np.sqrt(D))
+    a = arr((G, D, r), 1 / np.sqrt(D))
+    b = arr((G, r, F), 1 / np.sqrt(r))
+    tiles = torch.from_numpy(rng.randint(0, G, size=-(-T // bt))
+                             .astype(np.int32)).to(dev)
+    return x, w, a, b, tiles
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape", LORA_SHAPES)
+def test_batched_lora_kernel_matches_ref(card, shape, dtype):
+    bt = shape[-1]
+    x, w, a, b, tiles = _lora_inputs(*shape, getattr(torch, dtype), card)
+    before = lora_kernel.launches
+    got = batched_lora(x, w, a, b, tiles, bt=bt, scaling=0.5)  # auto
+    torch.cuda.synchronize()
+    assert lora_kernel.launches == before + 1
+    want = batched_lora_ref(x, w, a, b, tiles, bt=bt, scaling=0.5)
+    assert got.dtype == x.dtype and got.shape == (shape[0], shape[2])
+    np.testing.assert_allclose(got.float().cpu().numpy(),
+                               want.float().cpu().numpy(), **LORA_TOL[dtype])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_batched_lora_kernel_packed_segments(card, dtype):
+    """Rows of four adapters in ragged segments, packed tile-aligned by
+    pack_segments: every real row gets its own adapter's delta."""
+    T, D, F, G, r, bt = 300, 256, 256, 4, 8, 64
+    x, w, a, b, _ = _lora_inputs(T, D, F, G, r, bt, getattr(torch, dtype),
+                                 card)
+    gid = np.random.RandomState(4).randint(0, G, size=T)
+    order, tiles, padded = pack_segments(gid, bt=bt)
+    rows = torch.from_numpy(np.maximum(order, 0)).long().to(card)
+    xp = x[rows] * torch.from_numpy(order >= 0).to(card, x.dtype)[:, None]
+    tiles_t = torch.from_numpy(tiles).to(card)
+    got = batched_lora(xp, w, a, b, tiles_t, bt=bt, impl="cuda")
+    want = batched_lora_ref(xp, w, a, b, tiles_t, bt=bt)
+    np.testing.assert_allclose(got.float().cpu().numpy(),
+                               want.float().cpu().numpy(), **LORA_TOL[dtype])
+    real = torch.from_numpy(order >= 0).to(card)
+    per_row = (x.float() @ w.float() + torch.einsum(
+        "td,tdr,trf->tf", x.float(), a[torch.from_numpy(gid).to(card)].float(),
+        b[torch.from_numpy(gid).to(card)].float())).to(x.dtype)
+    np.testing.assert_allclose(got[real].float().cpu().numpy(),
+                               per_row[rows[real]].float().cpu().numpy(),
+                               **LORA_TOL[dtype])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("D", [256, 200, 2048])
+def test_batched_lora_kernel_rows_are_bitwise_independent(card, D, dtype):
+    """A row's bits do not depend on T: decode batches and short prefills
+    (the split-D path, T <= 256) and long prefills (the tiled path)
+    agree."""
+    x, w, a, b, _ = _lora_inputs(300, D, 128, 1, 8, 128,
+                                 getattr(torch, dtype), card)
+    full = batched_lora(x, w, a, b, torch.zeros(3, dtype=torch.int32,
+                                                 device=card), impl="cuda")
+    for n in (1, 3, 16, 17, 65, 256, 257):
+        part = batched_lora(x[:n], w, a, b, torch.zeros(
+            -(-n // 128), dtype=torch.int32, device=card), impl="cuda")
+        torch.testing.assert_close(part, full[:n], rtol=0, atol=0)
+
+
+@pytest.mark.cuda
+def test_batched_lora_kernel_rejects_bad_inputs(card):
+    x, w, a, b, tiles = _lora_inputs(64, 64, 64, 1, 4, 64, torch.float32,
+                                     card)
+    with pytest.raises(TypeError):
+        batched_lora(x.half(), w.half(), a.half(), b.half(), tiles, bt=64,
+                     impl="cuda")
+    with pytest.raises(ValueError):  # bt not a multiple of 64
+        batched_lora(x, w, a, b, torch.zeros(2, dtype=torch.int32,
+                                             device=card), bt=32, impl="cuda")
+    with pytest.raises(ValueError):  # tile ids of the wrong length
+        batched_lora(x, w, a, b, torch.zeros(3, dtype=torch.int32,
+                                             device=card), bt=64, impl="cuda")
+    with pytest.raises(ValueError):  # W not contiguous
+        batched_lora(x, w.t(), a, b, tiles, bt=64, impl="cuda")
+    with pytest.raises(ValueError):  # rank above 64
+        batched_lora(x, w, torch.zeros(1, 64, 65, device=card),
+                     torch.zeros(1, 65, 64, device=card), tiles, bt=64,
+                     impl="cuda")

@@ -197,6 +197,43 @@ def test_fused_matches_per_hop_bitwise(zoo, app, dtype):
     assert fused.stats["attn_calls"] == n_attn * fused.stats["group_calls"]
 
 
+@pytest.mark.parametrize("app", APPS)
+def test_fused_matches_per_hop_bitwise_ref_route(zoo, app):
+    """Under ``attn_impl="ref"`` the fused megastep and the per-hop path
+    still give bitwise-equal tokens."""
+    reqs = _requests(512, n=2, seed=17, gen_lens=(5,), apps=(app,))
+    got = _serve(_engine(zoo, "bfloat16", attn_impl="ref"), reqs)
+    ref = _serve(_engine(zoo, "bfloat16", attn_impl="ref", fused=False),
+                 reqs)
+    for g, r in zip(got, ref):
+        np.testing.assert_array_equal(g.tokens, r.tokens)
+
+
+@pytest.mark.parametrize("fused", [True, False])
+@pytest.mark.parametrize("app", ["base", "app-lora"])
+def test_kernel_call_counters_follow_the_hops(zoo, app, fused):
+    """``prefill_attn_calls``: one per attention hop per prefill call;
+    ``lora_calls``: two (q and v) per LoRA hop per prefill or decode
+    call; the kernels launch exactly these on the card."""
+    steps = zoo.chains[app].steps
+    n_attn = sum(1 for s in steps if zoo.blocks[s.block_id].has_kv)
+    n_lora = sum(1 for s in steps if s.adapter_ids)
+    rng = np.random.RandomState(31)
+    reqs = [ServeRequest(app=app, gen_len=4, prompt_tokens=rng.randint(
+        0, 512, size=n).astype(np.int32)) for n in (9, 12)]  # one bucket
+    engine = _engine(zoo, "bfloat16", fused=fused)
+    _serve(engine, reqs)
+    stats = engine.stats
+    prefill_calls = 1 if fused else len(reqs)
+    assert stats["prefill_attn_calls"] == n_attn * prefill_calls
+    if fused:
+        decode_calls = stats["group_calls"]
+    else:  # per-hop path: one group call per hop, LoRA on attention hops
+        decode_calls = stats["attn_calls"] // n_attn
+    assert stats["lora_calls"] == 2 * n_lora * (prefill_calls + decode_calls)
+    assert (stats["lora_calls"] > 0) == (app == "app-lora")
+
+
 def test_fused_mixed_apps_match_per_hop(zoo):
     reqs = _requests(512, n=6, seed=13)
     got = _serve(_engine(zoo, "bfloat16"), reqs)
@@ -210,9 +247,13 @@ def test_fused_mixed_apps_match_per_hop(zoo):
 # ---------------------------------------------------------------------------
 
 
-def test_engine_tokens_match_jax_engine_fp32(zoo, tmp_path):
+@pytest.fixture(scope="module")
+def jax_fp32_run(tmp_path_factory):
+    """The JAX engine's fp32 tokens for six requests over the three apps,
+    from one subprocess shared by the tests below."""
     reqs = _requests(512, n=6, seed=3)
-    inp, out = tmp_path / "reqs.npz", tmp_path / "jax_tokens.npz"
+    tmp = tmp_path_factory.mktemp("jax_engine")
+    inp, out = tmp / "reqs.npz", tmp / "jax_tokens.npz"
     np.savez(inp, apps=np.asarray([r.app for r in reqs]),
              gen_lens=np.asarray([r.gen_len for r in reqs]),
              **{f"p{i}": r.prompt_tokens for i, r in enumerate(reqs)})
@@ -223,9 +264,13 @@ def test_engine_tokens_match_jax_engine_fp32(zoo, tmp_path):
     proc = subprocess.run([sys.executable, "-c", script], env=env,
                           capture_output=True, text=True, timeout=600)
     assert proc.returncode == 0, proc.stderr[-4000:]
-    want = np.load(out)
+    return reqs, dict(np.load(out))
+
+
+def _match_jax_tokens(zoo, jax_fp32_run, **kw):
+    reqs, want = jax_fp32_run
     assert list(want["ids"]) == sorted(zoo.blocks)  # the same zoo
-    got = _serve(_engine(zoo, "float32"), reqs)
+    got = _serve(_engine(zoo, "float32", **kw), reqs)
     assert {r.app for r in reqs} == set(APPS)
     for i, (g, r) in enumerate(zip(got, reqs)):
         assert len(g.tokens) == r.gen_len
@@ -233,9 +278,54 @@ def test_engine_tokens_match_jax_engine_fp32(zoo, tmp_path):
                                       err_msg=f"app={r.app}")
 
 
+def test_engine_tokens_match_jax_engine_fp32(zoo, jax_fp32_run):
+    _match_jax_tokens(zoo, jax_fp32_run)
+
+
+def test_engine_ref_route_tokens_match_jax_engine_fp32(zoo, jax_fp32_run):
+    """Prefill attention and LoRA q/v through the kernels' plain versions
+    (``attn_impl="ref"``): still the JAX engine's fp32 tokens."""
+    _match_jax_tokens(zoo, jax_fp32_run, attn_impl="ref")
+
+
 # ---------------------------------------------------------------------------
 # preemption: spill and recalc resume token-exact
 # ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("strategy", ["spill", "recalc"])
+def test_preemption_token_exact_ref_route(zoo, strategy):
+    """Under ``attn_impl="ref"`` (flash and LoRA plain versions), with
+    prompts of lengths that are not powers of two, a preempted app-lora
+    request resumes token-exact; the recalc readmission prefills at the
+    unpadded length prompt + emitted."""
+    rng = np.random.RandomState(23)
+    reqs = [ServeRequest(app=app, gen_len=7, prompt_tokens=rng.randint(
+        0, 512, size=n).astype(np.int32))
+        for app, n in (("app-lora", 13), ("base", 21), ("app-lora", 11))]
+    ref = _serve(_engine(zoo, "bfloat16", attn_impl="ref"), reqs)
+    engine = _engine(zoo, "bfloat16", attn_impl="ref")
+    rids = [engine.submit(ServeRequest(app=r.app, gen_len=r.gen_len,
+                                       prompt_tokens=r.prompt_tokens))
+            for r in reqs]
+    engine.step()
+    engine.step()
+    before = engine.stats["prefill_attn_calls"]
+    assert engine.preempt(rids[0], strategy=strategy)
+    out = {r.rid: r for r in engine.drain()}
+    for rid, r in zip(rids, ref):
+        np.testing.assert_array_equal(out[rid].tokens, r.tokens)
+    n_attn = sum(1 for s in zoo.chains["app-lora"].steps
+                 if zoo.blocks[s.block_id].has_kv)
+    trace = out[rids[0]].info["trace"]
+    if strategy == "recalc":
+        assert engine.stats["recalc_readmits"] == 1
+        assert engine.stats["prefill_attn_calls"] == before + n_attn
+        recalc = [e for e in trace["events"] if e["name"] == "recalc"]
+        assert [e["meta"]["tokens"] for e in recalc] == [13 + 2]  # + emitted
+    else:
+        assert engine.stats["spills"] == 1
+        assert engine.stats["prefill_attn_calls"] == before
 
 
 @pytest.mark.parametrize("strategy", ["spill", "recalc"])

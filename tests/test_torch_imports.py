@@ -59,19 +59,58 @@ def test_no_jax_or_repro_imports(path):
                 f"{path.name}:{node.lineno} imports {name}"
 
 
-def test_kernel_build_targets_sm90a():
-    from repro_torch.kernels.paged_attention import kernel
+KERNEL_MODULES = ("paged_attention", "flash_attention", "batched_lora")
 
-    cmd = kernel.nvcc_command(kernel.SOURCE, Path("/tmp/x.so"))
+
+@pytest.mark.parametrize("name", KERNEL_MODULES)
+def test_kernel_build_targets_sm90a(name):
+    import importlib
+
+    from repro_torch.kernels import _build
+
+    kernel = importlib.import_module(f"repro_torch.kernels.{name}.kernel")
+    cmd = _build.nvcc_command(kernel.SOURCE, Path("/tmp/x.so"))
     assert "arch=compute_90a,code=sm_90a" in cmd
     assert "-shared" in cmd and str(kernel.SOURCE) in cmd
+    assert kernel.SOURCE.parent.name == "csrc"
     src = kernel.SOURCE.read_text()
     assert 'extern "C"' in src and "__global__" in src
     # the source note names the TPU kernel it replaces
-    assert "src/repro/kernels/paged_attention/kernel.py" in src
-    assert kernel.BUILD_DIR.name == "_build"
+    assert f"src/repro/kernels/{name}/kernel.py" in src
+    assert kernel.library_path().parent == _build.BUILD_DIR
+    assert kernel.library_path().name.startswith(f"lib{name}-")
+    assert _build.BUILD_DIR.name == "_build"
     gitignore = (ROOT / ".gitignore").read_text().split()
     assert "src/repro_torch/_build/" in gitignore
+
+
+def test_paged_attention_kernel_keeps_its_names():
+    from repro_torch.kernels.paged_attention import kernel
+
+    for name in ("load", "library_path", "launches", "paged_attention_cuda",
+                 "SOURCE"):
+        assert hasattr(kernel, name), name
+
+
+def test_importing_the_port_builds_and_loads_nothing():
+    """Every module imports on a machine without nvcc; no library is built
+    or loaded, and no compiler is started."""
+    code = (
+        "import importlib, subprocess\n"
+        "started = []\n"
+        "real = subprocess.Popen\n"
+        "subprocess.Popen = lambda *a, **k: started.append(a) or real(*a, **k)\n"
+        f"for m in {_modules()!r}:\n"
+        "    importlib.import_module(m)\n"
+        "from repro_torch.kernels import _build\n"
+        "assert not _build._loaded, _build._loaded\n"
+        "assert not started, started\n"
+        "print('ok')\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    proc = subprocess.run([sys.executable, "-c", code], env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip() == "ok"
 
 
 def _dotted(node):
