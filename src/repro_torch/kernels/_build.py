@@ -3,8 +3,9 @@
 Each kernel is one CUDA C++ source under ``kernels/<name>/csrc/`` with a
 plain C interface.  ``nvcc`` compiles it for ``sm_90a`` into a shared
 library in ``repro_torch/_build/`` (listed in .gitignore), named by the
-kernel and a hash of its source, so an edited source is rebuilt and a
-built one is reused; ``ctypes`` loads it.  ``build_all`` starts one
+kernel and a hash of its source and the headers it includes
+(``kernels/common/sm90.cuh``), so an edited source is rebuilt and a built
+one is reused; ``ctypes`` loads it.  ``build_all`` starts one
 ``nvcc`` per source at once, so a fresh checkout builds all kernels in
 the time of the slowest.
 
@@ -45,8 +46,20 @@ def nvcc_command(src: Path, out: Path, nvcc: str = "nvcc") -> list:
             "-Xcompiler", "-fPIC", "-o", str(out), str(src)]
 
 
+def _sources(src: Path) -> list:
+    """``src`` and the local headers it includes (``#include "..."``)."""
+    src = Path(src)
+    found = [src]
+    for line in src.read_text().splitlines():
+        if line.startswith('#include "'):
+            found += _sources(src.parent / line.split('"')[1])
+    return found
+
+
 def library_path(src: Path) -> Path:
-    digest = hashlib.sha1(Path(src).read_bytes()).hexdigest()[:12]
+    """Named by the kernel and a hash of its source and local headers."""
+    digest = hashlib.sha1(b"".join(
+        f.read_bytes() for f in _sources(src))).hexdigest()[:12]
     return BUILD_DIR / f"lib{Path(src).stem}-{digest}.so"
 
 

@@ -18,7 +18,10 @@ from repro_torch.kernels import _build
 SOURCE = Path(__file__).resolve().parent / "csrc" / "batched_lora.cu"
 ROW_TILE = 64  # rows per thread block (kBM in the source): bt's multiple
 MAX_RANK = 64  # kMaxR in the source
-SPLIT_T = 256  # kSplitT: calls with T <= SPLIT_T split D across blocks
+# calls with T <= SPLIT_T take the split-D path, longer ones the tiled one:
+# on the H100 the q projection (D = F = 2,048) ran faster split at T = 128
+# and 256 and tiled at 512 and 1,024 (chip_smoke.py's split sweep, PERF.md)
+SPLIT_T = 256
 D_CHUNK = 128  # kKC: the D chunk of the summation order
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -34,7 +37,7 @@ def library_path() -> Path:
 def _bind(lib: ctypes.CDLL) -> None:
     fn = lib.batched_lora_fwd
     fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5 + [
-        ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+        ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
     fn.restype = ctypes.c_int
 
 
@@ -83,17 +86,21 @@ def check_inputs(x, w, a, b, tile_groups, bt: int) -> None:
 
 
 def batched_lora_cuda(x, w, a, b, tile_groups, *, bt: int = 128,
-                      scaling: float = 1.0):
+                      scaling: float = 1.0, split=None):
     """Launch the kernel on PyTorch's current stream.  Returns (T, F) in
-    x's dtype."""
+    x's dtype.  ``split`` picks the path: None takes the split-D path for
+    T <= SPLIT_T and the tiled one above; True or False forces one (both
+    give the same bits, so this only moves time)."""
     global launches
     check_inputs(x, w, a, b, tile_groups, bt)
     T, D = x.shape
     F = w.shape[1]
     r = a.shape[2]
+    if split is None:
+        split = T <= SPLIT_T
     out = torch.empty((T, F), dtype=x.dtype, device=x.device)
     work = None  # the split path's fp32 partial sums, per D chunk
-    if T <= SPLIT_T:
+    if split:
         work = torch.empty(-(-D // D_CHUNK) * T * (F + r),
                            dtype=torch.float32, device=x.device)
     stream = torch.cuda.current_stream(x.device).cuda_stream
@@ -101,7 +108,7 @@ def batched_lora_cuda(x, w, a, b, tile_groups, *, bt: int = 128,
         x.data_ptr(), w.data_ptr(), a.data_ptr(), b.data_ptr(),
         tile_groups.data_ptr(), out.data_ptr(),
         None if work is None else work.data_ptr(), T, D, F, r, bt,
-        float(scaling), _DTYPES[x.dtype], stream)
+        float(scaling), int(bool(split)), _DTYPES[x.dtype], stream)
     if rc != 0:
         raise RuntimeError(f"batched_lora kernel launch failed: CUDA error "
                            f"{rc}")

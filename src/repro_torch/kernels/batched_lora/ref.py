@@ -1,7 +1,12 @@
 """Plain PyTorch segment-aligned batched LoRA — the port of
 ``repro.kernels.batched_lora.ref``: per-row adapter ids from the tile ids,
 the base product and both low-rank products in fp32, one cast at the end.
-T need not be a multiple of ``bt`` (the last tile is ragged)."""
+T need not be a multiple of ``bt`` (the last tile is ragged).
+
+The CUDA kernel rounds where this does (products of bf16 inputs are exact
+in fp32, one cast at the end) but sums in its own fixed order: chunks of
+128 along D, each from 0, added in order (in bf16 each chunk is eight
+tensor-core k16 steps), so the two agree at tolerance, not bitwise."""
 import torch
 
 

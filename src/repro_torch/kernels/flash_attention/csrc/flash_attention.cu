@@ -20,19 +20,48 @@
 // query tile) walks the KV tiles itself.  A query tile is kRows = 64 query
 // rows drawn from P = 64 / G consecutive positions times all G query heads
 // of the KV head, so every K/V tile staged in shared memory serves the G
-// heads at once.  Per KV tile of 64 keys, each of the 128 threads computes
-// an 8 x 4 block of scores from shared memory (SIMT, fp32), the rows'
-// max and sum are reduced over the 16 lanes that share them, P is kept in
-// fp32 in shared memory, and each thread accumulates an 8 x (hd / 16)
-// block of P @ V in registers.  The output is written once, rounded once.
-// Tiles are launched heaviest first (the causal diagonal's far end).
+// heads at once.  The block walks fixed 64-key tiles from position 0 and
+// writes its output once.  Tiles are launched heaviest first (the causal
+// diagonal's far end).  The two dtypes take two bodies:
+//
+//   bfloat16, tensor cores (the serving dtype).  Four warps, each owning
+//   16 of the 64 query rows.  The q tile is staged once in shared memory
+//   by 16-byte cp.async copies, rows padded by 16 bytes so ldmatrix reads
+//   no bank twice.  K and V tiles come by TMA into a two-stage ring of
+//   bf16 tiles: thread 0 asks for the next tile (4-D tensor maps over the
+//   strided (B, KVH, S, hd) views, made per call; zero fill past S; the
+//   64- or 128-byte swizzle, which ldmatrix undoes in its addressing) and
+//   the tile completes on its stage's mbarrier, so no warp stalls on
+//   issuing copies before its products, as it did with per-thread
+//   cp.async (a clock64 breakdown on the card).  A warp loads
+//   its q fragments once; per KV tile it computes its 16 x 64
+//   scores with mma.sync m16n8k16 (bf16 in, fp32 accumulate, K read by
+//   ldmatrix), masks (only tiles that reach past S or a row's position)
+//   and scales them, and runs the online softmax on the accumulator
+//   fragments in registers (row max and sum over the quad of lanes that
+//   share a row; exp by the hardware's ex2, __expf).  P goes from the
+//   score registers straight into the A fragments of P @ V, with V read
+//   by ldmatrix.trans.  P is not rounded to bf16: each P fragment is split
+//   into a bf16 pair, hi = bf16(p) and lo = bf16(p - hi), and both go
+//   through the tensor cores, so P @ V keeps p to about 2^-17 and the
+//   output is still rounded once, at the end, like the plain version's
+//   fp32 P (the price is a third more tensor-core work).
+//
+//   float32, CUDA cores (SIMT).  Each of the 128 threads computes an
+//   8 x 4 block of scores from fp32 tiles in shared memory, the rows' max
+//   and sum are reduced over the 16 lanes that share them, P is kept in
+//   fp32 in shared memory, and each thread accumulates an 8 x (hd / 16)
+//   block of P @ V in registers.  TF32 tensor cores would lose the fp32
+//   tolerance, so this route stays on the CUDA cores.
 //
 // Any S.  Unlike the Pallas kernel (S % bq == 0), positions at or past S
 // are masked (keys) or not written (queries).  KV tiles are fixed 64-key
 // tiles from position 0 and the query tiles fixed P-position tiles from 0,
-// so a row's summation order does not depend on where S ends: a prefill of
-// a prefix at its unpadded length gives bitwise the rows that a longer,
-// padded prefill gives for the same positions (the serving engine relies
+// and a row's products and sums run in an order fixed by those tiles
+// alone: masked keys give p = 0 exactly, and a tile wholly masked for a
+// row leaves its m, l and acc unchanged.  So a prefill of a prefix at its
+// unpadded length gives bitwise the rows that a longer, padded prefill
+// gives for the same positions, in either dtype (the serving engine relies
 // on this when it recomputes a preempted request's KV at readmission).
 //
 // Bound.  Causal work is about 2 * B * Hq * hd * S * (S + 1) flops (both
@@ -40,13 +69,18 @@
 // or 67 TFLOP/s (fp32 CUDA cores); at B = 4, S = 2048 and TinyLlama's heads
 // (Hq = 32, hd = 64) that is 68.7 GFLOP, 0.069 ms in bf16.  The q/k/v/o
 // bytes (75 MB there, 0.023 ms at 3.35 TB/s) are less, so prefill sizes are
-// bound by operations.  This first version computes on the CUDA cores in
-// fp32, so it stays far from that bound: wgmma and TMA staging (and P
-// rounded to bf16 for a tensor-core P @ V) are queued work.
+// bound by operations.  The bf16 body issues mma.sync, whose peak on
+// Hopper is below wgmma's, its softmax runs between the two products on
+// the same warps, and each warp reads the whole K/V tile from shared
+// memory for its 16 rows; wgmma with warp specialisation, where the softmax of one
+// tile overlaps the products of the next, is the next step toward the
+// bound.  The fp32 body is capped by the CUDA cores' 67 TFLOP/s.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "../../common/sm90.cuh"
 
 namespace {
 
@@ -57,19 +91,13 @@ constexpr int kRowsPer = 8;    // rows per thread (kRows / 8 row groups)
 constexpr int kKeysPer = 4;    // scores per row per thread (kKeys / 16)
 constexpr float kNegInf = -1e30f;
 
+// the fp32 body's conversions (T = float: the bf16 route is below)
 __device__ __forceinline__ float to_float(float x) { return x; }
-__device__ __forceinline__ float to_float(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
 
 template <typename T>
 __device__ __forceinline__ T from_float(float x);
 template <>
 __device__ __forceinline__ float from_float<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float x) {
-  return __float2bfloat16_rn(x);
-}
 
 // max / sum over the 16 lanes of a row group (a half warp); every lane
 // ends with the same value (the butterfly adds the same pairs everywhere)
@@ -258,43 +286,316 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
-template <typename T, int HD>
-int launch(const void* q, const void* k, const void* v, void* out, int B,
-           int KVH, int S, int G, Strides qs, Strides ks, Strides vs,
+// ---------------------------------------------------------------------------
+// bfloat16: tensor cores
+// ---------------------------------------------------------------------------
+
+using namespace sm90;
+constexpr int kWarps = kThreads / 32;  // 16 query rows each
+constexpr int kPad = 8;  // bf16 row padding: 16 bytes, so the 8 rows an
+                         // ldmatrix reads fall in 8 distinct bank groups
+static_assert(kWarps * 16 == kRows, "one m16 row tile per warp");
+
+__device__ __forceinline__ uint32_t pack_bf16(bf16 lo, bf16 hi) {
+  return (uint32_t)__bfloat16_as_ushort(lo) |
+         ((uint32_t)__bfloat16_as_ushort(hi) << 16);
+}
+
+// (x0, x1) -> the bf16 pairs hi = bf16(x), lo = bf16(x - hi)
+__device__ __forceinline__ void split_pair(float x0, float x1, uint32_t& hi,
+                                           uint32_t& lo) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(x0, x1);
+  const __nv_bfloat162 l = __floats2bfloat162_rn(x0 - __low2float(h),
+                                                 x1 - __high2float(h));
+  hi = pack_bf16(h.x, h.y);
+  lo = pack_bf16(l.x, l.y);
+}
+
+// bf16 staging: K and V tiles of kKeys rows by TMA in boxes kBoxW(HD)
+// elements wide (64 or 32: 128- or 64-byte rows, swizzled to match), a
+// two-stage ring each completing on its mbarrier; the q tile once by
+// cp.async, rows padded by 16 bytes.
+template <int HD>
+constexpr int kBoxW = HD < 64 ? HD : 64;
+template <int HD>
+constexpr int kTileBytes = kKeys * HD * (int)sizeof(bf16);  // K or V tile
+template <int HD>
+constexpr int kQOffset = 4 * kTileBytes<HD>;  // after two stages of K, V
+template <int HD>
+constexpr int tc_smem_bytes() {  // 1024 of slack to align the ring
+  return 1024 + kQOffset<HD> + kRows * (HD + kPad) * (int)sizeof(bf16) + 16;
+}
+
+// Byte offset of 16-byte chunk c (of HD / 8) of row j in a K or V tile
+template <int HD>
+__device__ __forceinline__ uint32_t kv_off(int j, int c) {
+  constexpr int kChunks = kBoxW<HD> / 8;  // chunks per box row
+  return (c / kChunks) * (kKeys * kBoxW<HD> * 2) +
+         swizzled<kBoxW<HD> * 2>(j * kBoxW<HD> * 2 + (c % kChunks) * 16);
+}
+
+// No __launch_bounds__: with it ptxas held hd = 64 to 128 registers and
+// spilled, and the kernel ran 1-15% slower on the card.
+template <int HD>
+__global__ void flash_attention_tc_kernel(
+    const bf16* __restrict__ q, const __grid_constant__ CUtensorMap k_map,
+    const __grid_constant__ CUtensorMap v_map, bf16* __restrict__ out, int S,
+    int G, int P, Strides qs, Strides os, float sm_scale, int causal) {
+  constexpr int kPitch = HD + kPad;      // q tile row pitch
+  constexpr int kChunks = HD / 8;        // 16-byte pieces per row
+  constexpr int kKS = HD / 16;           // k16 steps of q . k
+  constexpr int kDT = HD / 8;            // n8 tiles of the output
+  constexpr int kNT = kKeys / 8;         // n8 tiles of the scores
+  constexpr int kBoxes = HD / kBoxW<HD>;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  unsigned char* ring =
+      smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  bf16* q_s = reinterpret_cast<bf16*>(ring + kQOffset<HD>);  // [kRows][kPitch]
+  uint64_t* full = reinterpret_cast<uint64_t*>(
+      ring + kQOffset<HD> + kRows * kPitch * (int)sizeof(bf16));
+
+  const int qt = gridDim.x - 1 - blockIdx.x;  // heaviest tiles first
+  const int kvh = blockIdx.y;
+  const int b = blockIdx.z;
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5;
+  const int lane = tid & 31;
+  const int gid = lane >> 2;  // fragment row (and row + 8)
+  const int tig = lane & 3;   // fragment column pair
+  const int rows = P * G;     // <= kRows
+  const int q0 = qt * P;      // first position of the tile
+  const int last = min(S - 1, q0 + P - 1);
+  const int kv_end = causal ? last + 1 : S;
+  const int n_tiles = (kv_end + kKeys - 1) / kKeys;
+
+  auto issue = [&](int tile) {  // thread 0 only: K and V tile into its stage
+    unsigned char* st = ring + (tile & 1) * 2 * kTileBytes<HD>;
+    uint64_t* bar = full + (tile & 1);
+    mbar_expect_tx(bar, 2 * kTileBytes<HD>);
+#pragma unroll
+    for (int i = 0; i < kBoxes; ++i) {
+      const int off = i * kKeys * kBoxW<HD> * 2;
+      tma_load_4d(st + off, &k_map, i * kBoxW<HD>, tile * kKeys, kvh, b, bar);
+      tma_load_4d(st + kTileBytes<HD> + off, &v_map, i * kBoxW<HD>,
+                  tile * kKeys, kvh, b, bar);
+    }
+  };
+  if (tid == 0) {
+    mbar_init(full, 1);
+    mbar_init(full + 1, 1);
+    mbar_init_fence();
+  }
+  for (int c = tid; c < kRows * kChunks; c += kThreads) {
+    const int r = c / kChunks;
+    const int x = (c % kChunks) * 8;
+    const int pos = q0 + r / G;
+    const bool ok = r < rows && pos < S;
+    cp_async16(q_s + r * kPitch + x,
+               ok ? q + b * qs.b + (long long)(kvh * G + r % G) * qs.h +
+                        (long long)pos * qs.s + x
+                  : q,
+               ok);
+  }
+  cp_async_commit();
+  __syncthreads();  // the barriers are initialised
+  if (tid == 0) issue(0);
+  cp_async_wait<0>();
+  __syncthreads();  // the q tile landed
+
+  // this thread's two rows: fragment rows gid and gid + 8 of the warp's 16
+  int pos[2];
+  bool ok[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int r = warp * 16 + gid + 8 * h;
+    pos[h] = q0 + r / G;
+    ok[h] = r < rows && pos[h] < S;
+  }
+  float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
+  float o[kDT][4];
+#pragma unroll
+  for (int t = 0; t < kDT; ++t)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) o[t][e] = 0.f;
+  uint32_t qf[kKS][4];
+#pragma unroll
+  for (int kk = 0; kk < kKS; ++kk)
+    ldsm_x4(qf[kk],
+            q_s + (warp * 16 + (lane & 15)) * kPitch + kk * 16 + (lane >> 4) * 8);
+
+  for (int it = 0; it < n_tiles; ++it) {
+    if (tid == 0 && it + 1 < n_tiles) {
+      fence_proxy_async();
+      issue(it + 1);  // into the stage the previous tile read
+    }
+    __syncwarp();  // warp 0 reconverges before its ldmatrix
+    mbar_wait(full + (it & 1), (it >> 1) & 1);
+    const unsigned char* kt = ring + (it & 1) * 2 * kTileBytes<HD>;
+    const unsigned char* vt = kt + kTileBytes<HD>;
+
+    // scores: 16 rows x 64 keys, the k16 steps over hd in order
+    float s[kNT][4];
+#pragma unroll
+    for (int t = 0; t < kNT; ++t)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[t][e] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < kKS; ++kk) {
+#pragma unroll
+      for (int np = 0; np < kNT / 2; ++np) {
+        uint32_t bk[4];
+        ldsm_x4(bk, kt + kv_off<HD>(np * 16 + (lane & 7) + ((lane >> 4) << 3),
+                                    kk * 2 + ((lane >> 3) & 1)));
+        mma_bf16(s[2 * np], qf[kk], bk[0], bk[1]);
+        mma_bf16(s[2 * np + 1], qf[kk], bk[2], bk[3]);
+      }
+    }
+    // online softmax on the fragments, fp32.  A tile below every row's
+    // position and inside S needs no mask: it keeps every key of every
+    // valid row (rows not written see zeros from their zero-filled q).
+    const int k0 = it * kKeys;
+    const bool interior = k0 + kKeys <= S && (!causal || k0 + kKeys - 1 <= q0);
+    float mx[2] = {kNegInf, kNegInf};
+    if (interior) {
+#pragma unroll
+      for (int t = 0; t < kNT; ++t)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          s[t][e] *= sm_scale;
+          mx[e >> 1] = fmaxf(mx[e >> 1], s[t][e]);
+        }
+    } else {
+#pragma unroll
+      for (int t = 0; t < kNT; ++t)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int h = e >> 1;
+          const int kp = k0 + t * 8 + 2 * tig + (e & 1);
+          const bool keep = ok[h] && kp < S && (!causal || kp <= pos[h]);
+          s[t][e] = keep ? s[t][e] * sm_scale : kNegInf;
+          mx[h] = fmaxf(mx[h], s[t][e]);
+        }
+    }
+    float alpha[2], sum[2] = {0.f, 0.f};
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 1));
+      mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 2));
+      const float m_new = fmaxf(m[h], mx[h]);
+      alpha[h] = __expf(m[h] - m_new);
+      m[h] = m_new;
+    }
+#pragma unroll
+    for (int t = 0; t < kNT; ++t)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        s[t][e] = __expf(s[t][e] - m[e >> 1]);
+        sum[e >> 1] += s[t][e];
+      }
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      sum[h] += __shfl_xor_sync(0xffffffffu, sum[h], 1);
+      sum[h] += __shfl_xor_sync(0xffffffffu, sum[h], 2);
+      l[h] = l[h] * alpha[h] + sum[h];
+    }
+#pragma unroll
+    for (int t = 0; t < kDT; ++t) {
+      o[t][0] *= alpha[0];
+      o[t][1] *= alpha[0];
+      o[t][2] *= alpha[1];
+      o[t][3] *= alpha[1];
+    }
+
+    // o += P @ V: per 16 keys, P's hi and lo fragments from the scores
+#pragma unroll
+    for (int kk = 0; kk < kKeys / 16; ++kk) {
+      uint32_t ph[4], pl[4];
+      split_pair(s[2 * kk][0], s[2 * kk][1], ph[0], pl[0]);
+      split_pair(s[2 * kk][2], s[2 * kk][3], ph[1], pl[1]);
+      split_pair(s[2 * kk + 1][0], s[2 * kk + 1][1], ph[2], pl[2]);
+      split_pair(s[2 * kk + 1][2], s[2 * kk + 1][3], ph[3], pl[3]);
+#pragma unroll
+      for (int dp = 0; dp < kDT / 2; ++dp) {
+        uint32_t bv[4];
+        ldsm_x4_t(bv, vt + kv_off<HD>(kk * 16 + (lane & 7) + ((lane >> 3) & 1) * 8,
+                                      dp * 2 + (lane >> 4)));
+        mma_bf16(o[2 * dp], ph, bv[0], bv[1]);
+        mma_bf16(o[2 * dp + 1], ph, bv[2], bv[3]);
+        mma_bf16(o[2 * dp], pl, bv[0], bv[1]);
+        mma_bf16(o[2 * dp + 1], pl, bv[2], bv[3]);
+      }
+    }
+    __syncthreads();  // every warp is done with this stage before refill
+  }
+
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    if (!ok[h]) continue;
+    const int r = warp * 16 + gid + 8 * h;
+    const float inv_l = 1.f / fmaxf(l[h], 1e-30f);
+    bf16* dst = out + b * os.b + (long long)(kvh * G + r % G) * os.h +
+                (long long)pos[h] * os.s + 2 * tig;
+#pragma unroll
+    for (int t = 0; t < kDT; ++t)
+      *reinterpret_cast<__nv_bfloat162*>(dst + t * 8) = __floats2bfloat162_rn(
+          o[t][2 * h] * inv_l, o[t][2 * h + 1] * inv_l);
+  }
+}
+
+template <int HD>
+int launch(int dtype, const void* q, const void* k, const void* v, void* out,
+           int B, int KVH, int S, int G, Strides qs, Strides ks, Strides vs,
            Strides os, float sm_scale, int causal, cudaStream_t stream) {
   const int P = kRows / G;
-  const size_t smem = smem_floats<HD>() * sizeof(float);
-  static bool configured = false;  // one attribute call per instantiation
-  if (!configured) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        flash_attention_kernel<T, HD>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return (int)err;
-    configured = true;
-  }
   const dim3 grid((S + P - 1) / P, KVH, B);
-  flash_attention_kernel<T, HD><<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(out), S, G, P, qs, ks, vs,
-      os, sm_scale, causal);
+  if (dtype == 1) {
+    // K and V as 4-D tensors (hd, S, KVH, B) over their strided views
+    CUtensorMap k_map, v_map;
+    const cuuint64_t dims[4] = {(cuuint64_t)HD, (cuuint64_t)S,
+                                (cuuint64_t)KVH, (cuuint64_t)B};
+    const cuuint64_t k_str[3] = {(cuuint64_t)ks.s * 2, (cuuint64_t)ks.h * 2,
+                                 (cuuint64_t)ks.b * 2};
+    const cuuint64_t v_str[3] = {(cuuint64_t)vs.s * 2, (cuuint64_t)vs.h * 2,
+                                 (cuuint64_t)vs.b * 2};
+    const cuuint32_t box[4] = {kBoxW<HD>, kKeys, 1, 1};
+    cudaError_t err = encode_map(&k_map, k, 4, dims, k_str, box);
+    if (err == cudaSuccess) err = encode_map(&v_map, v, 4, dims, v_str, box);
+    if (err != cudaSuccess) return (int)err;
+    const size_t smem = tc_smem_bytes<HD>();
+    static bool configured = false;
+    err = allow_smem(flash_attention_tc_kernel<HD>, smem, configured);
+    if (err != cudaSuccess) return (int)err;
+    flash_attention_tc_kernel<HD><<<grid, kThreads, smem, stream>>>(
+        static_cast<const bf16*>(q), k_map, v_map, static_cast<bf16*>(out), S,
+        G, P, qs, os, sm_scale, causal);
+    return (int)cudaGetLastError();
+  }
+  const size_t smem = smem_floats<HD>() * sizeof(float);
+  static bool configured = false;
+  const cudaError_t err =
+      allow_smem(flash_attention_kernel<float, HD>, smem, configured);
+  if (err != cudaSuccess) return (int)err;
+  flash_attention_kernel<float, HD><<<grid, kThreads, smem, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<float*>(out), S, G, P, qs, ks,
+      vs, os, sm_scale, causal);
   return (int)cudaGetLastError();
 }
 
-template <typename T>
-int dispatch_hd(int hd, const void* q, const void* k, const void* v,
-                void* out, int B, int KVH, int S, int G, Strides qs,
-                Strides ks, Strides vs, Strides os, float sm_scale,
-                int causal, cudaStream_t stream) {
+int dispatch_hd(int hd, int dtype, const void* q, const void* k,
+                const void* v, void* out, int B, int KVH, int S, int G,
+                Strides qs, Strides ks, Strides vs, Strides os,
+                float sm_scale, int causal, cudaStream_t stream) {
   switch (hd) {
     case 32:
-      return launch<T, 32>(q, k, v, out, B, KVH, S, G, qs, ks, vs, os,
-                           sm_scale, causal, stream);
+      return launch<32>(dtype, q, k, v, out, B, KVH, S, G, qs, ks, vs, os,
+                        sm_scale, causal, stream);
     case 64:
-      return launch<T, 64>(q, k, v, out, B, KVH, S, G, qs, ks, vs, os,
-                           sm_scale, causal, stream);
+      return launch<64>(dtype, q, k, v, out, B, KVH, S, G, qs, ks, vs, os,
+                        sm_scale, causal, stream);
     case 128:
-      return launch<T, 128>(q, k, v, out, B, KVH, S, G, qs, ks, vs, os,
-                            sm_scale, causal, stream);
+      return launch<128>(dtype, q, k, v, out, B, KVH, S, G, qs, ks, vs, os,
+                         sm_scale, causal, stream);
     default:
       return (int)cudaErrorInvalidValue;
   }
@@ -323,14 +624,9 @@ int flash_attention_fwd(const void* q, const void* k, const void* v,
   const int G = Hq / KVH;
   const Strides qs{qsb, qsh, qss}, ks{ksb, ksh, kss}, vs{vsb, vsh, vss},
       os{osb, osh, oss};
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)
-    return dispatch_hd<float>(hd, q, k, v, out, B, KVH, S, G, qs, ks, vs, os,
-                              sm_scale, causal, s);
-  if (dtype == 1)
-    return dispatch_hd<__nv_bfloat16>(hd, q, k, v, out, B, KVH, S, G, qs, ks,
-                                      vs, os, sm_scale, causal, s);
-  return (int)cudaErrorInvalidValue;
+  if (dtype != 0 && dtype != 1) return (int)cudaErrorInvalidValue;
+  return dispatch_hd(hd, dtype, q, k, v, out, B, KVH, S, G, qs, ks, vs, os,
+                     sm_scale, causal, static_cast<cudaStream_t>(stream));
 }
 
 }  // extern "C"

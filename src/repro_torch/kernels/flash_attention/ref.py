@@ -1,7 +1,13 @@
 """Plain PyTorch flash attention forward — the port of
 ``repro.kernels.flash_attention.ref``: K/V repeated over the query group,
 fp32 scores scaled by ``sm_scale``, a ``tril`` mask at -1e30 when causal,
-fp32 softmax and fp32 ``P @ V``, cast to q's dtype.  Any S."""
+fp32 softmax and fp32 ``P @ V``, cast to q's dtype.  Any S.
+
+The CUDA kernel rounds at no other place in bf16: its tensor-core route
+feeds P to ``P @ V`` as a bf16 pair (hi = bf16(p), lo = bf16(p - hi)),
+which keeps p to about 2^-17, and rounds only the output.  So the two
+agree in bf16 within two ulps of the output, not only at the bf16
+tolerance."""
 import math
 
 import torch

@@ -151,6 +151,45 @@ def test_flash_attention_kernel_prefix_is_bitwise(card, dtype):
         torch.testing.assert_close(part, full[:, :, :n], rtol=0, atol=0)
 
 
+FLASH_EDGE_S = [1, 15, 63, 65, 1468, 2048]  # around the 64-key tiles
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("G", [1, 2, 8])
+@pytest.mark.parametrize("hd", [32, 64, 128])
+@pytest.mark.parametrize("S", FLASH_EDGE_S)
+def test_flash_attention_kernel_tile_edges(card, S, hd, G, dtype):
+    """Every head dim and group size at lengths on both sides of the
+    64-key tiles and at the long path's lengths: the bf16 tensor-core
+    body and the fp32 one against the plain version."""
+    q, k, v = _flash_inputs(1, 8, 8 // G, S, hd, getattr(torch, dtype), card,
+                            seed=S + hd + G)
+    got = flash_attention(q, k, v, impl="cuda")
+    torch.cuda.synchronize()
+    want = flash_attention_ref(q, k, v)
+    assert got.dtype == q.dtype and got.shape == q.shape
+    np.testing.assert_allclose(got.float().cpu().numpy(),
+                               want.float().cpu().numpy(), **TOL[dtype])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("G", [1, 2, 8])
+@pytest.mark.parametrize("hd", [32, 64, 128])
+def test_flash_attention_kernel_prefix_is_bitwise_per_shape(card, hd, G,
+                                                            dtype):
+    """The prefix property at every head dim and group size: a causal
+    prefix alone equals the same rows of a longer call bit for bit."""
+    q, k, v = _flash_inputs(2, 8, 8 // G, 200, hd, getattr(torch, dtype),
+                            card, seed=hd + G)
+    full = flash_attention(q, k, v, impl="cuda")
+    for n in (1, 15, 63, 64, 65, 129):
+        part = flash_attention(q[:, :, :n], k[:, :, :n], v[:, :, :n],
+                               impl="cuda")
+        torch.testing.assert_close(part, full[:, :, :n], rtol=0, atol=0)
+
+
 @pytest.mark.cuda
 def test_flash_attention_kernel_rejects_bad_inputs(card):
     q, k, v = _flash_inputs(1, 8, 4, 32, 32, torch.float32, card)
@@ -257,6 +296,50 @@ def test_batched_lora_kernel_rows_are_bitwise_independent(card, D, dtype):
         part = batched_lora(x[:n], w, a, b, torch.zeros(
             -(-n // 128), dtype=torch.int32, device=card), impl="cuda")
         torch.testing.assert_close(part, full[:n], rtol=0, atol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("F", [72, 256, 2048])
+@pytest.mark.parametrize("D", [200, 2048])
+@pytest.mark.parametrize("T", [1, 15, 17, 255, 257, 1000, 4096])
+def test_batched_lora_kernel_tile_edges(card, T, D, F, dtype):
+    """Four adapters, one per 128-row tile, at T on both sides of the
+    16-row groups, the split threshold's neighbourhood and long prefills;
+    D and F off the 128-wide tiles.  Both paths are run at every T (the
+    wrapper's choice and the forced other one): each matches the plain
+    version and the two agree bit for bit."""
+    x, w, a, b, tiles = _lora_inputs(T, D, F, 4, 8, 128,
+                                     getattr(torch, dtype), card, seed=T + F)
+    want = batched_lora_ref(x, w, a, b, tiles, scaling=0.5)
+    auto = lora_kernel.batched_lora_cuda(x, w, a, b, tiles, scaling=0.5)
+    other = lora_kernel.batched_lora_cuda(x, w, a, b, tiles, scaling=0.5,
+                                          split=T > lora_kernel.SPLIT_T)
+    torch.cuda.synchronize()
+    np.testing.assert_allclose(auto.float().cpu().numpy(),
+                               want.float().cpu().numpy(), **LORA_TOL[dtype])
+    torch.testing.assert_close(other, auto, rtol=0, atol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("D", [256, 200, 2048])
+def test_batched_lora_kernel_rows_bitwise_across_split_threshold(card, D,
+                                                                 dtype):
+    """T = SPLIT_T runs the split path and SPLIT_T + 1 the tiled one, at
+    the serving path's q width: their rows equal a longer call's bit for
+    bit."""
+    n = lora_kernel.SPLIT_T
+    x, w, a, b, _ = _lora_inputs(n + 300, D, 2048, 1, 8, 128,
+                                 getattr(torch, dtype), card)
+
+    def run(rows):
+        return batched_lora(x[:rows], w, a, b, torch.zeros(
+            -(-rows // 128), dtype=torch.int32, device=card), impl="cuda")
+
+    full = run(n + 300)
+    for rows in (n, n + 1):
+        torch.testing.assert_close(run(rows), full[:rows], rtol=0, atol=0)
 
 
 @pytest.mark.cuda

@@ -84,6 +84,24 @@ def test_kernel_build_targets_sm90a(name):
     assert "src/repro_torch/_build/" in gitignore
 
 
+def test_kernel_library_name_follows_included_headers(tmp_path):
+    """A library is named by its source and the local headers the source
+    includes, so editing the shared header rebuilds every kernel."""
+    from repro_torch.kernels import _build
+
+    (tmp_path / "common").mkdir()
+    (tmp_path / "k" / "csrc").mkdir(parents=True)
+    header = tmp_path / "common" / "sm90.cuh"
+    src = tmp_path / "k" / "csrc" / "k.cu"
+    header.write_text("// v1\n")
+    src.write_text('#include <cuda_runtime.h>\n#include "../../common/sm90.cuh"\n')
+    assert _build._sources(src) == [src, src.parent / "../../common/sm90.cuh"]
+    before = _build.library_path(src)
+    header.write_text("// v2\n")
+    assert _build.library_path(src) != before
+    assert _build.library_path(src).name.startswith("libk-")
+
+
 def test_paged_attention_kernel_keeps_its_names():
     from repro_torch.kernels.paged_attention import kernel
 
