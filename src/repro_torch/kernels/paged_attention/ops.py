@@ -52,14 +52,28 @@ def write_token_to_pages(k_pages, v_pages, block_tables, positions, k_new,
 
 def paged_decode_step(q, k_new, v_new, k_pages, v_pages, block_tables,
                       kv_len, *, impl: str = "auto"):
-    """One single-token decode step: scatter the new token's K/V into the
-    pages (in place), then attend over them at ``kv_len + 1``.
+    """One single-token decode step: store the new token's K/V in the pages
+    at ``kv_len`` (in place), then attend over them at ``kv_len + 1``.
 
     q/k_new/v_new: (B, H, hd) / (B, KVH, hd); kv_len: (B,) tokens already
-    cached.  Returns (o, k_pages, v_pages) with o: (B, H, hd).
+    cached.  Returns (o, k_pages, v_pages) with o: (B, H, hd).  On CUDA
+    tensors (``cuda``, or ``auto``) this is one launch of the kernel, which
+    computes ``kv_len + 1`` itself and reads no length on the host; ``ref``
+    scatters with ``write_token_to_pages`` and attends with the plain
+    version.
     """
+    if impl not in IMPLS:
+        raise ValueError(f"paged_decode_step impl {impl!r}; one of {IMPLS}")
+    if impl == "auto":
+        impl = "cuda" if q.is_cuda else "ref"
+    if impl == "cuda":
+        if not q.is_cuda:
+            raise ValueError("paged_decode_step impl='cuda' needs CUDA "
+                             f"tensors; got q on {q.device}")
+        o = kernel.paged_decode_cuda(q, k_new, v_new, k_pages, v_pages,
+                                     block_tables, kv_len)
+        return o, k_pages, v_pages
     k_pages, v_pages = write_token_to_pages(
         k_pages, v_pages, block_tables, kv_len, k_new, v_new)
-    o = paged_attention(q, k_pages, v_pages, block_tables, kv_len + 1,
-                        impl=impl)
+    o = paged_attention_ref(q, k_pages, v_pages, block_tables, kv_len + 1)
     return o, k_pages, v_pages

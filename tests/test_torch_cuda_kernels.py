@@ -17,7 +17,11 @@ from repro_torch.kernels.flash_attention import kernel as flash_kernel
 from repro_torch.kernels.flash_attention.ops import flash_attention
 from repro_torch.kernels.flash_attention.ref import flash_attention_ref
 from repro_torch.kernels.paged_attention import kernel as t_kernel
-from repro_torch.kernels.paged_attention.ops import paged_attention
+from repro_torch.kernels.paged_attention.ops import (
+    paged_attention,
+    paged_decode_step,
+    write_token_to_pages,
+)
 from repro_torch.kernels.paged_attention.ref import paged_attention_ref
 
 torch.backends.cuda.matmul.allow_tf32 = False
@@ -25,6 +29,15 @@ torch.backends.cudnn.allow_tf32 = False
 
 TOL = {"float32": dict(rtol=2e-5, atol=2e-5),
        "bfloat16": dict(rtol=2e-2, atol=2e-2)}
+
+
+def bf16_ulp_err(got, want):
+    """Largest |got - want| in bf16 ulps of ``want`` (1e-5 at least)."""
+    w = want.float()
+    _, e = torch.frexp(w)
+    ulp = torch.where(w == 0, torch.zeros_like(w),
+                      torch.ldexp(torch.ones_like(w), e - 8))
+    return float(((got.float() - w).abs() / ulp.clamp_min(1e-5)).max())
 LORA_TOL = {"float32": dict(rtol=1e-4, atol=1e-4),
             "bfloat16": dict(rtol=5e-2, atol=5e-2)}
 
@@ -91,6 +104,158 @@ def test_paged_attention_kernel_rejects_bad_inputs(card):
     with pytest.raises(ValueError):
         paged_attention(q, k[..., :16].contiguous(), v[..., :16].contiguous(),
                         tables, lens, impl="cuda")
+
+
+SPLIT = t_kernel.SPLIT_TOKENS
+# kv_len at page edges (16-token pages) and at split edges
+EDGE_KV = [0, 15, 16, 17, SPLIT - 1, SPLIT, SPLIT + 1]
+
+
+def _decode_inputs(kv_len, Hq, KVH, hd, page, dtype, dev, seed=11, extra=1):
+    """A decode step's inputs: tables ``extra`` pages wider than the longest
+    row needs, trash page 0 past the page each row's new slot lies in."""
+    rng = np.random.RandomState(seed)
+    B = len(kv_len)
+    nps = max(kv_len) // page + 1 + extra
+    P = B * nps + 2
+
+    def arr(*shape):
+        return torch.from_numpy(rng.standard_normal(shape).astype(
+            np.float32)).to(dev, dtype)
+
+    q, k, v = arr(B, Hq, hd), arr(P, page, KVH, hd), arr(P, page, KVH, hd)
+    k_new, v_new = arr(B, KVH, hd), arr(B, KVH, hd)
+    tables = (rng.permutation(B * nps) + 2).reshape(B, nps).astype(np.int32)
+    for b, n in enumerate(kv_len):
+        tables[b, n // page + 1:] = 0
+    return (q, k_new, v_new, k, v, torch.from_numpy(tables).to(dev),
+            torch.tensor(kv_len, dtype=torch.int32, device=dev))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("G", [1, 2, 8])
+@pytest.mark.parametrize("hd", [32, 64, 128])
+def test_paged_decode_fused_matches_scatter_then_ref(card, hd, G, dtype):
+    """One fused launch against write_token_to_pages + the plain version:
+    the pages bitwise, the output at the kernel tolerances (bf16 also
+    within one bf16 ulp), kv_len at page and split edges."""
+    KVH = 2
+    q, kn, vn, k, v, tables, kv_len = _decode_inputs(
+        EDGE_KV, G * KVH, KVH, hd, 16, getattr(torch, dtype), card)
+    want_k, want_v = write_token_to_pages(k.clone(), v.clone(), tables,
+                                          kv_len, kn, vn)
+    want = paged_attention_ref(q, want_k, want_v, tables, kv_len + 1)
+    before = t_kernel.launches
+    o, k2, v2 = paged_decode_step(q, kn, vn, k, v, tables, kv_len)
+    torch.cuda.synchronize()
+    assert t_kernel.launches == before + 1
+    assert k2 is k and v2 is v
+    assert torch.equal(k, want_k) and torch.equal(v, want_v)
+    torch.testing.assert_close(o.float(), want.float(), **TOL[dtype])
+    if dtype == "bfloat16":
+        # P is kept as a bf16 hi/lo pair (to ~2^-17) and the output rounded
+        # once, like the fp32 plain version's: within one bf16 ulp of it
+        assert bf16_ulp_err(o, want) <= 1.0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("split_tokens", [64, 256, 512])
+def test_paged_decode_other_split_lengths(card, split_tokens, dtype):
+    """The split lengths the sweep times agree with the plain version."""
+    kv = [0, 63, 64, 300, 511, 512, 1000]
+    q, kn, vn, k, v, tables, kv_len = _decode_inputs(
+        kv, 32, 4, 64, 16, getattr(torch, dtype), card)
+    want_k, want_v = write_token_to_pages(k.clone(), v.clone(), tables,
+                                          kv_len, kn, vn)
+    want = paged_attention_ref(q, want_k, want_v, tables, kv_len + 1)
+    o = t_kernel.paged_decode_cuda(q, kn, vn, k, v, tables, kv_len,
+                                   split_tokens=split_tokens)
+    torch.cuda.synchronize()
+    assert torch.equal(k, want_k) and torch.equal(v, want_v)
+    torch.testing.assert_close(o.float(), want.float(), **TOL[dtype])
+    got = t_kernel.paged_attention_cuda(q, k, v, tables, kv_len + 1,
+                                        split_tokens=split_tokens)
+    assert torch.equal(got, o)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("kv", [0, 17, SPLIT - 1, SPLIT, 3 * SPLIT + 5])
+def test_paged_decode_row_bits_independent_of_batch_and_width(card, kv,
+                                                              dtype):
+    """A row computed alone (table as wide as it needs), inside a batch of
+    16 other rows, and with a table twice as wide: bitwise one output."""
+    lens = [int(x) for x in np.random.RandomState(kv).randint(0, 4 * SPLIT,
+                                                              16)]
+    lens[5] = kv
+    q, kn, vn, k, v, tables, kv_len = _decode_inputs(
+        lens, 32, 4, 64, 16, getattr(torch, dtype), card, seed=kv)
+    batch = paged_decode_step(q, kn, vn, k, v, tables, kv_len)[0]
+    row = slice(5, 6)
+    need = kv // 16 + 1
+    alone = paged_decode_step(q[row], kn[row], vn[row], k, v,
+                              tables[row, :need].contiguous(),
+                              kv_len[row])[0]
+    wide_t = torch.zeros(1, 2 * tables.shape[1], dtype=torch.int32,
+                         device=card)
+    wide_t[:, :need] = tables[row, :need]
+    wide = paged_decode_step(q[row], kn[row], vn[row], k, v, wide_t,
+                             kv_len[row])[0]
+    torch.cuda.synchronize()
+    assert torch.equal(alone[0], batch[5])
+    assert torch.equal(wide[0], batch[5])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_paged_attend_only_matches_fused_bitwise(card, dtype):
+    """The attend-only launch over the pages the fused one wrote gives the
+    fused output bit for bit, and a second fused call (the same row
+    written again) changes nothing."""
+    q, kn, vn, k, v, tables, kv_len = _decode_inputs(
+        EDGE_KV + [3 * SPLIT + 1], 16, 2, 64, 16, getattr(torch, dtype),
+        card)
+    fused = paged_decode_step(q, kn, vn, k, v, tables, kv_len)[0]
+    pages = k.clone(), v.clone()
+    attend = paged_attention(q, k, v, tables, kv_len + 1)
+    again = paged_decode_step(q, kn, vn, k, v, tables, kv_len)[0]
+    torch.cuda.synchronize()
+    assert torch.equal(attend, fused) and torch.equal(again, fused)
+    assert torch.equal(k, pages[0]) and torch.equal(v, pages[1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_paged_attention_row_without_keys_is_zero(card, dtype):
+    """Attend only, a row of length 0 beside rows with several splits: its
+    output is 0 (no live split), as the Pallas kernel's; the other rows
+    match the plain version."""
+    q, k, v, tables, lens = _inputs(4, 8, 2, 64, 16, 20, getattr(torch, dtype),
+                                    card)
+    lens[1] = 0
+    tables[1] = 0
+    got = paged_attention(q, k, v, tables, lens)
+    want = paged_attention_ref(q, k, v, tables, lens)
+    torch.cuda.synchronize()
+    assert not got[1].float().abs().max()
+    keep = [0, 2, 3]
+    torch.testing.assert_close(got[keep].float(), want[keep].float(),
+                               **TOL[dtype])
+
+
+@pytest.mark.cuda
+def test_paged_decode_rejects_bad_inputs(card):
+    q, kn, vn, k, v, tables, kv_len = _decode_inputs(
+        [3, 20], 8, 4, 32, 16, torch.bfloat16, card)
+    with pytest.raises(TypeError):
+        paged_decode_step(q, kn.float(), vn.float(), k, v, tables, kv_len)
+    with pytest.raises(ValueError):
+        paged_decode_step(q, kn[:, :2].contiguous(), vn, k, v, tables,
+                          kv_len)
+    with pytest.raises(TypeError):
+        paged_decode_step(q, kn, vn, k, v, tables, kv_len.float())
 
 
 # ---------------------------------------------------------------------------
