@@ -15,7 +15,8 @@ script exits non-zero without printing a result:
    within one bf16 ulp of the plain version), attend only and as the fused
    decode step (one launch that stores the new token's K/V in its page,
    pages bitwise equal to ``write_token_to_pages``'), at the demo,
-   TinyLlama, main-path, long and long_prefill-decode shapes, and at split
+   TinyLlama, main-path (plain and, tables widened by speculation's
+   headroom, ``main_spec``), long and long_prefill-decode shapes, and at split
    lengths of 64-512 positions at the main-path and long shapes (timed for
    ``SPLIT_TOKENS``); flash attention forward
    (2e-2 / 2e-5, bf16 within two bf16 ulps of the plain version and, at
@@ -52,7 +53,20 @@ script exits non-zero without printing a result:
    the flip is reported with its step and margin), and the recompute's
    prefill runs at its unpadded length (the flash kernel is then held
    against its plain version at that length);
-5. parity on the card: the fused megastep against the per-hop path, token
+5. speculation: the engine phase's 12 requests on fresh engines with
+   lookahead 4 -- spec-OFF, spec-ON at the default prune ratio, forced
+   accept (prune 0: every draft a hit) and forced reject (each surrogate
+   lm_head negated: no hit, until the accept-rate gate turns each
+   signature off), then spill and recalc preemption of a request whose
+   group holds speculative commits not yet synced; every run's tokens
+   must equal spec-OFF's, except a flip where the ref path's top-2 logit
+   margin is not clear (reported with the calls that computed the token
+   in both runs and their group widths), every kernel's launches must
+   equal its executor counter and the paged launches the chain walks
+   counted from the calls (2k - 1 per speculative call); with tokens/s,
+   step wall, accept rate, each signature's probe fidelity and gate,
+   peak memory and two profiled forced-accept steps;
+6. parity on the card: the fused megastep against the per-hop path, token
    for token, and ``attn_impl="cuda"`` against ``attn_impl="ref"`` (the
    three kernels' plain versions), equal wherever the ref run's top-2
    logit margin is clear.
@@ -66,6 +80,7 @@ line
 is ``{"ok": true, "device": {...}}``.  Without a CUDA device the script
 exits non-zero before printing anything.
 """
+import dataclasses
 import json
 import subprocess
 import sys
@@ -81,7 +96,10 @@ import torch  # noqa: E402
 
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.core import peft  # noqa: E402
-from repro_torch.core.blocks import chain_prefill_fused  # noqa: E402
+from repro_torch.core.blocks import (  # noqa: E402
+    chain_prefill_fused,
+    chain_signature,
+)
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels.batched_lora import kernel as lora_kernel  # noqa: E402
 from repro_torch.kernels.batched_lora.ops import (  # noqa: E402
@@ -159,6 +177,7 @@ DEVICE = "cuda"
 SPIN_CYCLES = 2_000_000  # ~1 ms at H100 clocks: longer than any enqueue here
 PROFILE_STEPS = 8
 ENGINE_REPEATS = 2  # more serves of the engine traffic, step wall only
+SPEC_LOOKAHEAD = 4  # tokens per speculative call (1 pending + 3 drafts)
 
 
 def emit(obj) -> None:
@@ -428,11 +447,13 @@ def paged_attention_cases(cfg):
     """Paged cases: (B, Hq, KVH, hd, pages per seq, seq_lens, pool pages).
     The demo and TinyLlama heads at ragged lengths, the engine's decode
     batch (``main_path``: four of its requests at prompt + half the
-    generation, in a pool the size of the engine's), a long-context batch
-    and the long_prefill path's decode groups."""
+    generation, in a pool the size of the engine's; ``main_spec``: the same
+    under speculation, tables widened by its headroom), a long-context
+    batch and the long_prefill path's decode groups."""
     H, G_kv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
     nps = MAX_LEN // PAGE
     engine_pages = 1 + 16 * nps * cfg.num_layers
+    spec_nps = -(-(MAX_LEN + SPEC_LOOKAHEAD) // PAGE)
     rng = np.random.RandomState(0)
     ragged = [1, 16, 17, MAX_LEN]
     main_lens = [int(r.prompt_tokens.shape[0]) + GEN_LEN // 2
@@ -446,6 +467,10 @@ def paged_attention_cases(cfg):
         "tinyllama": (16, H, G_kv, hd, nps,
                       lens(ragged, 12, MAX_LEN), 1 + 16 * nps),
         "main_path": (4, H, G_kv, hd, nps, main_lens, engine_pages),
+        # the same batch under speculation: slots and tables widened by the
+        # lookahead headroom (17 pages a row, 3 splits instead of 2)
+        "main_spec": (4, H, G_kv, hd, spec_nps, main_lens,
+                      1 + 16 * spec_nps * cfg.num_layers),
         "long": (16, H, G_kv, hd, 4096 // PAGE,
                  lens([1, 16, 17, 4096], 12, 4096), 1 + 16 * 4096 // PAGE),
         **long_decode_cases(cfg, long_traffic(cfg)),
@@ -792,6 +817,21 @@ def engine_phase(cfg, zoo, smi):
     return reqs, results, launches, row
 
 
+def profiled(run):
+    """Run ``run()`` (a list of engine steps) under ``torch.profiler``,
+    kernels only.  Returns ([(device us, launches, kernel name)] sorted by
+    time, the number of steps run)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        steps = len(run())
+        torch.cuda.synchronize()
+    return sorted(((e.self_device_time_total, e.count, e.key)
+                   for e in prof.key_averages()
+                   if e.device_type == DeviceType.CUDA), reverse=True), steps
+
+
 def profile_phase(zoo, reqs, step_wall_p50):
     """Where the engine's time goes in steady decode: the same traffic on a
     fresh engine, ``PROFILE_STEPS`` engine steps after admission and
@@ -799,9 +839,6 @@ def profile_phase(zoo, reqs, step_wall_p50):
     busy share is the device time per step over the measured (unprofiled)
     run's median step wall; the profiler's own host cost slows the
     profiled steps, not the device work they record."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
     eng = engine(zoo)
     for r in reqs:
         eng.submit(ServeRequest(app=r.app, gen_len=r.gen_len,
@@ -809,14 +846,9 @@ def profile_phase(zoo, reqs, step_wall_p50):
     for _ in range(4):  # admission + prefill, then the decode groups form
         eng.step()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(PROFILE_STEPS):
-            eng.step()
-        torch.cuda.synchronize()
+    by_kernel, _ = profiled(lambda: [eng.step()
+                                     for _ in range(PROFILE_STEPS)])
     eng.drain()
-    by_kernel = sorted(((e.self_device_time_total, e.count, e.key)
-                        for e in prof.key_averages()
-                        if e.device_type == DeviceType.CUDA), reverse=True)
     device_s = sum(us for us, _, _ in by_kernel) / 1e6 / PROFILE_STEPS
 
     def seconds(match):
@@ -987,7 +1019,329 @@ def long_prefill_phase(cfg, zoo, smi):
 
 
 # ---------------------------------------------------------------------------
-# phase 5: parity on the card
+# phase 5: speculation (draft-verify decoding)
+# ---------------------------------------------------------------------------
+
+
+def spec_engine(zoo, **kw):
+    return engine(zoo, spec_lookahead=SPEC_LOOKAHEAD, **kw)
+
+
+def log_calls(eng) -> dict:
+    """Wrap ``eng``'s executor to record its decode calls: how many plain
+    fused and speculative calls ran, and per request, for each call that
+    advanced it, (kind, group width, index of the first token the call
+    computed, how many it computed).  Token 0 comes from prefill; a plain
+    call computes one token, a speculative call as many as it commits."""
+    ex = eng.executor
+    log = {"plain": 0, "spec": 0, "by_rid": {}}
+    done: dict = {}  # rid -> tokens decode calls have computed so far
+    fused, spec = ex.fused_step, ex.spec_step
+
+    def note(kind, states, counts):
+        log[kind] += 1
+        for st, c in zip(states, counts):
+            e = done.get(st.rid, 0)
+            log["by_rid"].setdefault(st.rid, []).append(
+                (kind, len(states), e + 1, int(c)))
+            done[st.rid] = e + int(c)
+
+    def fused_step(states, kv):
+        out = fused(states, kv)
+        note("plain", states, [1] * len(states))
+        return out
+
+    def spec_step(states, kv, *args, **kw):
+        att, acc, cnt = spec(states, kv, *args, **kw)
+        note("spec", states, cnt)
+        return att, acc, cnt
+
+    ex.fused_step, ex.spec_step = fused_step, spec_step
+    return log
+
+
+def computed_by(log, rid, j):
+    """(kind, group width) of the call that computed token ``j`` of
+    ``rid``."""
+    if j == 0:
+        return ("prefill", None)
+    for kind, width, first, n in log["by_rid"].get(rid, []):
+        if first <= j < first + n:
+            return (kind, width)
+    return (None, None)
+
+
+def spec_gates(eng) -> dict:
+    """Each app's signature: its worst probe fidelity over the pruned hops
+    and whether the ``spec_min_fidelity`` gate let it on."""
+    out = {}
+    for app in APPS:
+        steps = eng._steps(eng.zoo.chains[app], None)[0]
+        ss = eng._spec_state(chain_signature(steps), steps)
+        out[app] = {"fidelity": ss.fidelity, "enabled": ss.enabled}
+    return out
+
+
+def negate_drafts(eng) -> None:
+    """Replace every app's surrogate lm_head with a negated copy: drafts
+    become the model's argmin, so verification rejects them all (as
+    tests/test_spec_decode.py forces rejection)."""
+    for app in APPS:
+        steps = eng._steps(eng.zoo.chains[app], None)[0]
+        ss = eng._spec_state(chain_signature(steps), steps)
+        head, adapters = ss.sur_steps[-1]
+        p = dict(head.params, lm_head=-head.params["lm_head"])
+        ss.sur_steps[-1] = (dataclasses.replace(
+            head, id=head.id + "-neg", params=p, _compute={}, _scaling={}),
+            adapters)
+
+
+def spec_flips(zoo, reqs, got, want, logs, what):
+    """Tokens of ``got`` against spec-OFF's ``want``: each request whose
+    stream differs is reported with the first differing token, the calls
+    that computed it in both runs (kind, group width: cuBLAS may round a
+    row differently at another M) and the ref path's top-2 logit margin
+    there; a flip at a clear margin fails."""
+    flips = []
+    for r, g, w in zip(reqs, got, want):
+        diff = np.nonzero(g.tokens != w.tokens)[0]
+        if not len(diff):
+            continue
+        j = int(diff[0])
+        margin = ref_margin(zoo, r.app, np.concatenate(
+            [r.prompt_tokens, w.tokens[:j]]))
+        flips.append({"rid": g.rid, "app": r.app, "at": j,
+                      "call": computed_by(logs[0], g.rid, j),
+                      "spec_off_call": computed_by(logs[1], w.rid, j),
+                      "ref_margin": margin})
+        if margin > CLEAR_MARGIN:
+            raise RuntimeError(f"speculation {what}: rid {g.rid} ({r.app}) "
+                               f"diverges from spec-OFF at token {j} where "
+                               f"the ref margin {margin} is clear: "
+                               f"{flips[-1]}")
+    return flips
+
+
+def spec_row(name, eng, results, wall, log, launches, peak):
+    stats = dict(eng.stats)
+    snap = eng.metrics.snapshot()["histograms"]
+    tokens = sum(len(r.tokens) for r in results)
+    return {"run": name, "tokens": tokens, "wall_s": wall,
+            "tok_per_s": tokens / wall,
+            "step_wall_p50_s": snap["step_wall_s"]["p50"],
+            "steps": stats["steps"],
+            "group_calls_per_token": stats["group_calls"]
+            / max(stats["decode_tokens"], 1),
+            "host_syncs": stats["host_syncs"],
+            "spec_attempts": stats["spec_attempts"],
+            "spec_hits": stats["spec_hits"],
+            "accept_rate": stats["spec_hits"]
+            / max(stats["spec_attempts"], 1),
+            "plain_calls": log["plain"], "spec_calls": log["spec"],
+            "launches": launches,
+            "executor_calls": {c: stats[c] for c in KERNEL_COUNTERS.values()},
+            "max_memory_allocated_bytes": peak}
+
+
+def check_walks(stats, log, n_attn, what):
+    """Every decode call walked the chain as counted: one walk per plain
+    call, 2k - 1 per speculative call, n_attn paged launches per walk."""
+    walks = log["plain"] + (2 * SPEC_LOOKAHEAD - 1) * log["spec"]
+    if stats["attn_calls"] != n_attn * walks:
+        raise RuntimeError(f"speculation {what}: attn_calls "
+                           f"{stats['attn_calls']} != {n_attn} x {walks} "
+                           f"walks ({log['plain']} plain, {log['spec']} "
+                           "speculative calls)")
+
+
+def spec_preempt_run(cfg, zoo, reqs, want, off_log, strategy):
+    """Speculation forced on (prune 0: every draft a hit) over ``reqs``
+    (one request of each app, as tests/test_spec_decode.py preempts three),
+    the base request preempted after two engine steps while its group
+    holds speculative commits not yet synced, readmitted by ``strategy``;
+    ``want``/``off_log`` are spec-OFF's run of the same requests."""
+    eng = spec_engine(zoo, speculation=True, spec_prune_ratio=0.0)
+    spec_gates(eng)  # surrogates built before the counts are zeroed
+    log = log_calls(eng)
+    reset_launches()
+    rids = [eng.submit(ServeRequest(app=r.app, gen_len=r.gen_len,
+                                    prompt_tokens=r.prompt_tokens))
+            for r in reqs]
+    done = {}
+    for _ in range(2):  # admission + prefill + a speculative call, then one
+        done.update({r.rid: r for r in eng.step()})
+    victim = rids[0]
+    buffered = eng.executor.buffered(victim)
+    if reqs[0].app != "base" or buffered < 2:
+        raise RuntimeError(f"speculation {strategy}: rid {victim} holds "
+                           f"{buffered} unsynced tokens (want >= 2)")
+    if not eng.preempt(victim, strategy):
+        raise RuntimeError(f"speculation {strategy}: rid {victim} not "
+                           "resident")
+    if eng._spec_churn != eng.config.spec_churn_steps:
+        raise RuntimeError("speculation: preemption did not pause it")
+    emitted = next(m["tokens_done"] for n, _, m in
+                   eng.tracer.trace(victim).events if n == "preempt")
+    done.update({r.rid: r for r in eng.drain()})
+    torch.cuda.synchronize()
+    launches = read_launches()
+    stats = dict(eng.stats)
+    what = f"speculation {strategy}"
+    check_launches(launches, stats, what)
+    check_walks(stats, log, cfg.num_layers, what)
+    check_prefill_calls(stats, reqs, cfg.num_layers, what,
+                        recalcs=int(strategy == "recalc"))
+    key = "spills" if strategy == "spill" else "recalc_readmits"
+    if stats[key] != 1 or not stats["spec_attempts"] \
+            or stats["spec_hits"] != stats["spec_attempts"]:
+        raise RuntimeError(f"{what}: {key} {stats[key]}, spec "
+                           f"{stats['spec_hits']}/{stats['spec_attempts']}")
+    got = [done[r] for r in rids]
+    flips = spec_flips(zoo, reqs, got, want, (log, off_log), what)
+    return {"run": strategy, "rid": victim, "app": reqs[0].app,
+            "unsynced_tokens": buffered, "tokens_done": emitted,
+            "recalc_tokens": reqs[0].prompt_len + emitted
+            if strategy == "recalc" else None,
+            "spec_attempts": stats["spec_attempts"],
+            "spec_hits": stats["spec_hits"], "bitwise_equal": not flips,
+            "flips": flips, "launches": launches}
+
+
+def speculation_phase(cfg, zoo, smi):
+    """The engine phase's traffic on fresh engines, lookahead 4: spec-OFF,
+    spec-ON at the default prune ratio, forced accept (prune 0: each
+    surrogate is its parent, every draft a hit) and forced reject (prune 0
+    with each app's surrogate lm_head negated: no hit, until the
+    accept-rate gate turns each signature off); then spill and recalc
+    preemption in the middle of forced-accept speculation.  Every run's
+    tokens must equal spec-OFF's (a flip only where the ref margin is not
+    clear, reported), every kernel's launches its executor counter, and
+    attn_calls the walks counted from the calls; surrogates are built (and
+    timed) before a run's counts are zeroed."""
+    reqs = traffic(cfg)
+    n_attn = cfg.num_layers
+    # The zoo's default cache of 32 surrogates is smaller than this zoo's
+    # 45 FFN-bearing blocks (22 base layers, vicuna's layer 1, app-lora's
+    # 22 FFN halves), so at the default every fresh engine rebuilt the
+    # ones the last evicted (9-13 s an engine on the H100's host); hold
+    # both prune ratios' sets, and restore the default after the phase.
+    n_ffn = len({s.block_id for c in zoo.chains.values() for s in c.steps
+                 if "w_gate" in zoo.blocks[s.block_id].params})
+    cache_default = zoo.surrogate_cache_max
+    zoo.surrogate_cache_max = max(cache_default, 2 * n_ffn)
+    # warm-up: the surrogate FFN's GEMM shapes, the spec path's allocations
+    serve(spec_engine(zoo, speculation=True, spec_prune_ratio=0.0),
+          traffic(cfg, n=3, gen_len=8, seed=1))
+    torch.cuda.reset_peak_memory_stats()
+    runs = {"spec_off": dict(speculation=False),
+            "spec_on": dict(speculation=True),
+            "forced_accept": dict(speculation=True, spec_prune_ratio=0.0),
+            "forced_reject": dict(speculation=True, spec_prune_ratio=0.0)}
+    rows, results, logs, gates, launches_by_run = {}, {}, {}, {}, {}
+    build_s = {}
+    for name, kw in runs.items():
+        eng = spec_engine(zoo, **kw)
+        t0 = time.perf_counter()
+        if eng.config.speculation:
+            gates[name] = spec_gates(eng)
+            if name == "forced_reject":
+                negate_drafts(eng)
+        torch.cuda.synchronize()
+        build_s[name] = time.perf_counter() - t0
+        log = logs[name] = log_calls(eng)
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        t0 = time.perf_counter()
+        out = results[name] = serve(eng, reqs)
+        wall = time.perf_counter() - t0
+        if name == "forced_reject":  # every signature's gate tripped
+            for app, gate in spec_gates(eng).items():
+                gates[name][app]["enabled_at_end"] = gate["enabled"]
+        launches = launches_by_run[name] = read_launches()
+        stats = dict(eng.stats)
+        check_launches(launches, stats, f"speculation {name}")
+        check_walks(stats, log, n_attn, name)
+        check_prefill_calls(stats, reqs, n_attn, f"speculation {name}")
+        for r in out:
+            if len(r.tokens) != GEN_LEN or r.probs_last is None \
+                    or not np.isfinite(r.probs_last).all():
+                raise RuntimeError(f"speculation {name}: rid {r.rid} bad "
+                                   "output")
+        rows[name] = spec_row(name, eng, out, wall, log, launches,
+                              torch.cuda.max_memory_allocated())
+    off = rows["spec_off"]
+    if off["spec_attempts"] or logs["spec_off"]["spec"]:
+        raise RuntimeError("speculation: spec-OFF ran speculative calls")
+    acc, rej = rows["forced_accept"], rows["forced_reject"]
+    if not 0 < acc["spec_hits"] == acc["spec_attempts"]:
+        raise RuntimeError(f"forced accept: hits {acc['spec_hits']} of "
+                           f"{acc['spec_attempts']} attempts")
+    if rej["spec_attempts"] <= 0 or rej["spec_hits"] != 0 \
+            or rej["steps"] != off["steps"] \
+            or any(g["enabled_at_end"] for g in gates["forced_reject"].values()):
+        raise RuntimeError(f"forced reject: hits {rej['spec_hits']} of "
+                           f"{rej['spec_attempts']}, steps {rej['steps']} "
+                           f"(spec-OFF {off['steps']}), gates "
+                           f"{gates['forced_reject']}")
+    flips = {name: spec_flips(zoo, reqs, results[name], results["spec_off"],
+                              (logs[name], logs["spec_off"]), name)
+             for name in runs if name != "spec_off"}
+    few = reqs[:len(APPS)]  # one request of each app, base first
+    off_eng = spec_engine(zoo)
+    off_log = log_calls(off_eng)
+    few_off = serve(off_eng, few)
+    preempt = [spec_preempt_run(cfg, zoo, few, few_off, off_log, s)
+               for s in ("spill", "recalc")]
+    peak = max([r["max_memory_allocated_bytes"] for r in rows.values()]
+               + [torch.cuda.max_memory_allocated()])
+    profile = spec_profile(zoo, reqs, acc["step_wall_p50_s"])
+    row = {"phase": "speculation", "model": MODEL, "layers": cfg.num_layers,
+           "requests": len(reqs), "gen_len": GEN_LEN,
+           "lookahead": SPEC_LOOKAHEAD, "runs": list(rows.values()),
+           "gates": gates, "surrogate_build_s": build_s,
+           "surrogate_cache": {"max": zoo.surrogate_cache_max,
+                               "default": cache_default, "ffn_blocks": n_ffn,
+                               "held": len(zoo._surrogate_cache)},
+           "flips": flips, "bitwise_equal": not any(flips.values()),
+           "preemption": preempt, "profile_forced_accept": profile,
+           "max_memory_allocated_bytes": peak, "card": smi}
+    emit(row)
+    zoo.surrogate_cache_max = cache_default
+    launches = {f"speculation_{k}": v for k, v in launches_by_run.items()}
+    launches.update({f"speculation_{p['run']}": p["launches"]
+                     for p in preempt})
+    return launches, row
+
+
+def spec_profile(zoo, reqs, step_wall_p50):
+    """Two steady forced-accept engine steps under ``torch.profiler``
+    (kernels only): device time per step and kernel launches per
+    speculative call."""
+    eng = spec_engine(zoo, speculation=True, spec_prune_ratio=0.0)
+    spec_gates(eng)
+    log = log_calls(eng)
+    for r in reqs:
+        eng.submit(ServeRequest(app=r.app, gen_len=r.gen_len,
+                                prompt_tokens=r.prompt_tokens))
+    for _ in range(2):  # admission + prefill + a first call, then another
+        eng.step()
+    torch.cuda.synchronize()
+    before = log["spec"]
+    by_kernel, prof_steps = profiled(lambda: [eng.step() for _ in range(2)])
+    calls = log["spec"] - before
+    eng.drain()
+    device_s = sum(us for us, _, _ in by_kernel) / 1e6 / prof_steps
+    paged = sum(n for _, n, k in by_kernel if "paged_attention" in k)
+    return {"steps": prof_steps, "spec_calls": calls,
+            "device_s_per_step": device_s, "step_wall_p50_s": step_wall_p50,
+            "device_busy_share": device_s / step_wall_p50,
+            "kernel_launches_per_spec_call":
+            sum(n for _, n, _ in by_kernel) / max(calls, 1),
+            "paged_launches_per_spec_call": paged / max(calls, 1)}
+
+
+# ---------------------------------------------------------------------------
+# phase 6: parity on the card
 # ---------------------------------------------------------------------------
 
 
@@ -1135,13 +1489,24 @@ def main():
     del flush
     phase_s["long_prefill"] = time.perf_counter() - t0
     t0 = time.perf_counter()
+    spec_launches, spec = speculation_phase(cfg, zoo, smi)
+    # the spec recompute prefill's unpadded length, known only now
+    n = next(p["recalc_tokens"] for p in spec["preemption"]
+             if p["run"] == "recalc")
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device=DEVICE)
+    rows += flash_phase({f"main_spec_recalc_B1_S{n}":
+                         (1, H, G_kv, n, hd, True)}, flush)
+    del flush
+    phase_s["speculation"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
     fused_vs_per_hop(cfg, zoo)
     cuda_vs_ref(zoo, reqs, results)
     phase_s["parity"] = time.perf_counter() - t0
 
     # each main-path run: counts set to 0 just before, read just after
     by_path = {"engine": eng_launches, **{
-        f"long_prefill_{k}": v for k, v in long_launches.items()}}
+        f"long_prefill_{k}": v for k, v in long_launches.items()},
+        **spec_launches}
     # the shape each kernel's ms stands for: paged attention's decode
     # batch; flash's costliest prefill call (the long path's largest
     # group); LoRA's decode q projection at the engine's app-lora batch,
@@ -1184,7 +1549,9 @@ def main():
     emit({"phase": "done", "total_s": time.perf_counter() - t_start,
           "kernel_build_s": build_s, "zoo_build_s": zoo_s,
           "phase_s": phase_s, "tok_per_s": eng_row["tok_per_s"],
-          "long_prefill_tok_per_s": long_row["prefill_tok_per_s"]})
+          "long_prefill_tok_per_s": long_row["prefill_tok_per_s"],
+          "speculation_tok_per_s": {r["run"]: r["tok_per_s"]
+                                    for r in spec["runs"]}})
     emit({"kernels": line})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

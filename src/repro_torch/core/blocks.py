@@ -455,6 +455,89 @@ def chain_decode_fused(steps, pool_index, tokens, pools_k, pools_v, tables,
     return next_tokens, probs, tuple(pools_k), tuple(pools_v), kv_len + 1
 
 
+def chain_decode_spec_fused(steps, sur_steps, pool_index, tokens, pools_k,
+                            pools_v, tables, kv_len, budget, *,
+                            lookahead: int, attn_impl: str = "auto",
+                            compute_dtype: torch.dtype = L.COMPUTE_DTYPE):
+    """Draft-verify speculative decode megastep (paper §5.2, DESIGN.md §2):
+    one call that commits up to ``lookahead`` tokens per sequence while
+    staying bitwise identical to ``lookahead`` plain ``chain_decode_fused``
+    calls.
+
+    Phase 1 (draft): the surrogate chain ``sur_steps`` — the same chain
+    with its FFN hops structurally pruned
+    (``core.surrogates.build_surrogate(prune_kv=False)``, so every
+    attention hop keeps the full chain's KV signature and page tables) —
+    runs ``lookahead - 1`` sequential single-token walks, drafting tokens
+    d_1..d_{k-1} after the pending token p.  Its K/V writes land in the
+    shared pools at positions kv_len..kv_len+k-2 as scratch.
+
+    Phase 2 (verify): the full chain replays [p, d_1, .., d_{k-1}] through
+    ``_chain_step_fused``, the very call the plain megastep makes,
+    overwriting the draft scratch with true K/V and producing the true
+    next token n_j at every position.  d_j is accepted iff it equals
+    n_{j-1}, so the committed stream is the full model's greedy stream,
+    bit for bit.
+
+    Rollback is positional: ``kv_len`` only advances past accepted
+    positions, so K/V written beyond the accepted prefix is dead — later
+    steps overwrite those slots and attention masks them out meanwhile.
+    Callers must size KV slots with ``lookahead`` tokens of headroom
+    because both phases write up to ``kv_len + lookahead - 1``.
+
+    budget: (B,) max tokens each lane may commit this call (the engine
+    passes remaining gen budget minus one, keeping the pending-token
+    finish protocol intact); accepted drafts are clamped to ``budget - 1``.
+
+    Returns (commit_tok (B, k) committed-token candidates [p, d_1, ..],
+    commit_cnt (B,) how many of them committed (>= 1), accepted (B,)
+    drafts accepted, attempts (B,) drafts that could have committed,
+    next_tokens (B,) new pending token, probs (B, V) its distribution,
+    pools_k, pools_v, kv_len + commit_cnt).
+    """
+    k = lookahead
+    if k < 2:
+        raise ValueError("speculative decode needs lookahead >= 2")
+    B = tokens.shape[0]
+    # phase 1: sequential surrogate drafts (cheap pruned-FFN chain walks)
+    cur = tokens
+    drafts = []
+    for j in range(k - 1):
+        cur, _ = _chain_step_fused(sur_steps, pool_index, cur, pools_k,
+                                   pools_v, tables, kv_len + j, attn_impl,
+                                   compute_dtype)
+        drafts.append(cur)
+    # The reference pins this phase boundary with an optimization_barrier
+    # so XLA cannot fuse draft numerics into the verify pass; eager PyTorch
+    # runs each op as issued, so the verify walks below are the plain
+    # megastep's calls unchanged and need no counterpart.
+    # phase 2: exact sequential verify of [p, d_1, .., d_{k-1}]
+    inputs = [tokens] + drafts
+    outs, probs_steps = [], []
+    for j in range(k):
+        nxt, probs = _chain_step_fused(steps, pool_index, inputs[j], pools_k,
+                                       pools_v, tables, kv_len + j,
+                                       attn_impl, compute_dtype)
+        outs.append(nxt)
+        probs_steps.append(probs)
+    commit_tok = torch.stack(inputs, dim=1)    # (B, k)
+    outs_m = torch.stack(outs, dim=1)          # (B, k): n_0..n_{k-1}
+    probs_m = torch.stack(probs_steps, dim=1)  # (B, k, V)
+    # accept: longest drafted prefix matching the true argmaxes, clamped so
+    # a lane never commits past its remaining generation budget
+    match = (commit_tok[:, 1:] == outs_m[:, :-1]).to(torch.int32)
+    accepted = torch.cumprod(match, dim=1).sum(dim=1, dtype=torch.int32)
+    attempts = torch.clamp(budget.to(torch.int32) - 1, min=0, max=k - 1)
+    accepted = torch.minimum(accepted, attempts)
+    commit_cnt = accepted + 1
+    lane = torch.arange(B, device=tokens.device)
+    acc = accepted.long()
+    next_tokens = outs_m[lane, acc]
+    probs_out = probs_m[lane, acc]
+    return (commit_tok, commit_cnt, accepted, attempts, next_tokens,
+            probs_out, tuple(pools_k), tuple(pools_v), kv_len + commit_cnt)
+
+
 def chain_prefill_fused(steps, tokens, lens, *, attn_impl: str = "auto",
                         compute_dtype: torch.dtype = L.COMPUTE_DTYPE):
     """Batched multi-request prefill through a whole chain.

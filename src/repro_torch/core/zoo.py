@@ -12,11 +12,14 @@ Lazy partitioning (Fig. 11):
 - PEFT model -> foundation blocks shared + tiny adapter blocks; if an
   adapter touches only the attention sublayer, affected layer blocks are
   split into attention+ffn so the FFN remains shared (Fig. 11 step 3).
+- Surrogates for speculative serving (paper §5.2): FFN-pruned copies of
+  blocks, built on first use and kept in a bounded LRU cache.
 
-Surrogates for speculation and the block profiler wait for a later slice.
+The block profiler waits for a later slice.
 """
 from __future__ import annotations
 
+from collections import OrderedDict
 from typing import Dict, List, Tuple
 
 from repro_torch.configs.base import ModelConfig
@@ -29,6 +32,7 @@ from repro_torch.core.blocks import (
     tree_leaves,
 )
 from repro_torch.core.equivalence import param_equivalence
+from repro_torch.core.surrogates import build_surrogate
 
 DEDUP_THRESHOLD = 0.995   # parametric: treat as the same block
 EQUIV_THRESHOLD = 0.98    # paper §7.1: adaptive-serving equivalence
@@ -43,6 +47,13 @@ class BlockZoo:
         self.blocks: Dict[str, Block] = {}
         self.chains: Dict[str, BlockChain] = {}
         self.equivalences: Dict[Tuple[str, str], float] = {}
+        self.surrogates: Dict[str, str] = {}  # block id -> surrogate block id
+        # bounded surrogate cache for speculative serving (paper §5.2):
+        # keyed by (parent block id — which embeds the parent params'
+        # tree_hash — prune ratio, prune_kv); LRU-evicted so a long-lived
+        # engine serving many chains cannot grow the zoo without bound
+        self.surrogate_cache_max = 32
+        self._surrogate_cache: "OrderedDict[Tuple, str]" = OrderedDict()
         # bookkeeping for Fig. 5 (redundancy of per-model provisioning)
         self.registered_model_bytes: Dict[str, int] = {}
 
@@ -160,6 +171,34 @@ class BlockZoo:
         att_id, ffn_id = self._add_block(att), self._add_block(ffn)
         blk.meta["split"] = (att_id, ffn_id)
         return att_id, ffn_id
+
+    # ------------------------------------------------------------------
+    def surrogate_for(self, block_id: str, prune_ratio: float, *,
+                      prune_kv: bool = False) -> str:
+        """Return (building and registering on first use) the surrogate of
+        ``block_id`` at ``prune_ratio`` for speculative serving (§5.2).
+
+        The cache key is (parent block id, ratio, prune_kv) — the parent id
+        embeds the parent params' ``tree_hash``, so a re-registered block
+        with different weights gets a fresh surrogate.  Eviction removes
+        the surrogate block from the zoo as well (the engine rebuilds it on
+        next use), keeping surrogate storage bounded."""
+        key = (block_id, round(float(prune_ratio), 6), bool(prune_kv))
+        sid = self._surrogate_cache.get(key)
+        if sid is not None:
+            self._surrogate_cache.move_to_end(key)
+            return sid
+        sur = build_surrogate(self.blocks[block_id], prune_ratio,
+                              prune_kv=prune_kv)
+        self.blocks[sur.id] = sur
+        self.surrogates[block_id] = sur.id
+        self._surrogate_cache[key] = sur.id
+        while len(self._surrogate_cache) > self.surrogate_cache_max:
+            old_key, old_sid = self._surrogate_cache.popitem(last=False)
+            self.blocks.pop(old_sid, None)
+            if self.surrogates.get(old_key[0]) == old_sid:
+                del self.surrogates[old_key[0]]
+        return sur.id
 
     # ------------------------------------------------------------------
     def add_equivalence(self, a: str, b: str, score: float):

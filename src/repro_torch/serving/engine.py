@@ -18,6 +18,11 @@ drain) by wiring together:
 The engine itself only resolves chains, runs the admission/decode loop,
 and translates between ``ServeRequest``/``ServeResult`` and the layers.
 
+Speculative decoding (``EngineConfig.speculation``, paper §5.2): fused
+groups whose chain signature passes the surrogate gates run the
+draft-verify megastep (``BlockExecutor.spec_step``), committing up to
+``spec_lookahead`` tokens per call, bitwise the plain greedy stream.
+
 Device and precision are the caller's: ``EngineConfig.device`` (``cuda``
 unless the caller asks for ``cpu``) and ``EngineConfig.compute_dtype``.
 Constructing an engine turns TF32 off for cuBLAS and cuDNN, so fp32 runs
@@ -34,6 +39,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.blocks import Block, BlockChain, chain_signature
+from repro_torch.core.surrogates import surrogate_fidelity
 from repro_torch.core.zoo import BlockZoo
 from repro_torch.kernels.paged_attention.ops import IMPLS as ATTN_IMPLS
 from repro_torch.models.layers import resolve_dtype
@@ -67,9 +73,33 @@ class EngineConfig:
     preempt_strategy: str = "auto"  # auto | spill | recalc (§5.1)
     fused: bool = True          # fused chain-step megastep + batched prefill
     #   (False = per-hop dispatch path, kept as the parity oracle)
-    speculation: bool = False   # draft-verify decoding: not ported yet
+    # -- speculative execution (paper §5.2, draft-verify, verify-exact) ------
+    speculation: bool = False   # draft with FFN-only surrogates, verify exact
+    spec_lookahead: int = 4     # tokens per speculative megastep (1 + drafts)
+    spec_min_accept: float = 0.1    # disable a signature below this EMA
+    spec_prune_ratio: float = 0.25  # surrogate FFN prune ratio
+    spec_min_fidelity: float = 0.9  # probe fidelity gate at surrogate build
+    spec_churn_steps: int = 4   # spec pause (engine steps) after a preemption
+    spec_retry_steps: int = 32  # cooldown before retrying a disabled sig
+    spec_ema_alpha: float = 0.2  # accept-rate EMA smoothing
     device: str = "cuda"        # where the pools live and compute runs
     compute_dtype: str = "bfloat16"  # activations and KV pools
+
+
+@dataclass
+class _SpecSig:
+    """Per-chain-signature speculation state: the surrogate draft chain and
+    the live gating variables (DESIGN.md §2, paper §5.2)."""
+    sur_steps: List[Tuple[Block, Tuple[Block, ...]]]
+    fidelity: float             # min probe fidelity over pruned hops
+    enabled: bool
+    ema: float = 1.0            # accept-rate EMA (starts optimistic)
+    cooldown: int = 0           # engine steps until a disabled sig retries
+
+
+# the fidelity probe: (1, 8, d_in) hidden states of 0.1 * N(0, 1) from this
+# seed, as the reference probes with PRNGKey(0)
+_PROBE_SEED = 0
 
 
 @dataclass
@@ -79,7 +109,7 @@ class _ReqState:
     steps: List[Tuple[Block, Tuple[Block, ...]]]  # resolved (block, adapters)
     gen_len: int
     prompt_len: int
-    slot_tokens: int = 0        # KV slot capacity
+    slot_tokens: int = 0        # KV slot capacity (adds spec lookahead room)
     prompt_tokens: Optional[np.ndarray] = None  # kept for recompute-on-readmit
     adaptive_blocks_used: int = 0
     kv_len: int = 0             # tokens currently cached (prompt + decoded)
@@ -97,10 +127,6 @@ class BlockEngine(Server):
     def __init__(self, zoo: BlockZoo, max_len: int = 256,
                  config: Optional[EngineConfig] = None):
         self.config = c = config or EngineConfig()
-        if c.speculation:
-            raise NotImplementedError(
-                "speculative decoding is not ported yet: see the speculation "
-                "slice in ROADMAP.md")
         if c.attn_impl not in ATTN_IMPLS:
             raise ValueError(f"attn_impl {c.attn_impl!r} selects the kernels; "
                              f"one of {ATTN_IMPLS}")
@@ -123,9 +149,11 @@ class BlockEngine(Server):
         for name in ("steps", "prefills", "decode_tokens", "group_calls",
                      "host_syncs", "attn_calls", "prefill_attn_calls",
                      "lora_calls", "preemptions", "spills",
-                     "recalc_readmits", "completed", "tokens_emitted"):
+                     "recalc_readmits", "completed", "tokens_emitted",
+                     "spec_attempts", "spec_hits"):
             self.metrics.counter(name)  # pre-register: snapshots start at 0
         self.metrics.set_gauge("max_block_batch", c.max_block_batch)
+        self.metrics.set_gauge("spec_accept_rate", 0.0)
         # legacy dict-shaped view: engine.stats[k] reads the counter values
         self.stats = self.metrics.counters_view()
         self._c_steps = self.metrics.counter("steps")
@@ -136,7 +164,12 @@ class BlockEngine(Server):
                                       metrics=self.metrics,
                                       compute_dtype=self.compute_dtype,
                                       device=self.device)
-        pages_per_seq = -(-max_len // c.page_size)
+        # spec steps write drafts up to lookahead-1 positions past the
+        # committed length, so slots need that much headroom: a write past
+        # a slot's last page would land on the trash page (or, in a table
+        # the group pads wider, on no page of the row at all)
+        self._spec_headroom = c.spec_lookahead if c.speculation else 0
+        pages_per_seq = -(-(max_len + self._spec_headroom) // c.page_size)
         num_pages = c.num_pages or (
             1 + c.max_active * pages_per_seq * self._max_attn_steps())
         self.kv = KVManager(c.page_size, num_pages, dtype=self.compute_dtype,
@@ -146,6 +179,13 @@ class BlockEngine(Server):
         self._entries: Dict[int, SchedEntry] = {}  # rid -> running lifecycle
         self._early: List[ServeResult] = []        # gen_len=0 completions
         self._pending_prefill: List[_ReqState] = []  # admitted, not prefilled
+        # per-chain-signature speculation state + global churn gate
+        self._spec: Dict[Tuple, _SpecSig] = {}
+        self._spec_churn = 0   # engine steps speculation stays off after
+        #   a preemption (device-resident groups just re-formed; drafting
+        #   into freshly moved KV slots amplifies thrash)
+        self._c_spec_attempts = self.metrics.counter("spec_attempts")
+        self._c_spec_hits = self.metrics.counter("spec_hits")
 
     @property
     def pools(self):
@@ -242,8 +282,9 @@ class BlockEngine(Server):
     # -- admission: scheduler decides, executor prefills ---------------------
 
     def _slot_tokens(self, prompt_len: int, gen_len: int) -> int:
-        """Whole-lifetime KV slot capacity for a request: prompt + output."""
-        return prompt_len + gen_len
+        """Whole-lifetime KV slot capacity for a request: prompt + output
+        plus speculative-write headroom when speculation is on."""
+        return prompt_len + gen_len + self._spec_headroom
 
     def _fits(self, entry: SchedEntry) -> bool:
         if len(self.active) >= self.config.max_active:
@@ -380,6 +421,9 @@ class BlockEngine(Server):
         entry.payload = (state, snap)
         self.scheduler.submit(entry)  # keeps its seq: resumes in order
         self.metrics.inc("preemptions")
+        # preemption churn pauses speculation: groups are about to re-form
+        # and drafting into freshly migrated KV amplifies thrash (§5.2)
+        self._spec_churn = self.config.spec_churn_steps
         return True
 
     def _resume(self, entry: SchedEntry):
@@ -403,27 +447,91 @@ class BlockEngine(Server):
         self.active.append(state)
         self.executor.invalidate_tables()  # same rid, new pages
 
+    # -- speculative execution: surrogate draft chains (paper §5.2) ----------
+
+    def _spec_state(self, sig: Tuple, steps) -> _SpecSig:
+        """Lazily build the surrogate draft chain for a chain signature:
+        FFN-only surrogates (KV layout preserved, so drafts share the full
+        chain's pools) from the zoo's bounded cache, fidelity-probed per
+        pruned hop; a signature starts enabled only when the worst hop
+        clears ``spec_min_fidelity``."""
+        ss = self._spec.get(sig)
+        if ss is not None:
+            return ss
+        c = self.config
+        sur_steps: List[Tuple[Block, Tuple[Block, ...]]] = []
+        fidelity = 1.0
+        pruned = 0
+        for block, adapters in steps:
+            if "w_gate" in block.params:
+                sid = self.zoo.surrogate_for(block.id, c.spec_prune_ratio,
+                                             prune_kv=False)
+                sur = self.zoo.blocks[sid]
+                g = torch.Generator().manual_seed(_PROBE_SEED)
+                probe = (0.1 * torch.randn(1, 8, block.d_in, generator=g)).to(
+                    device=self.device, dtype=self.compute_dtype)
+                fidelity = min(fidelity,
+                               surrogate_fidelity(block, sur, probe))
+                sur_steps.append((sur, adapters))
+                pruned += 1
+            else:
+                sur_steps.append((block, adapters))
+        enabled = pruned > 0 and fidelity >= c.spec_min_fidelity
+        ss = _SpecSig(sur_steps=sur_steps, fidelity=fidelity,
+                      enabled=enabled)
+        self._spec[sig] = ss
+        return ss
+
+    def _tick_spec_gates(self) -> None:
+        """Advance the per-step speculation gates: churn pause countdown and
+        disabled-signature retry cooldowns (retry resets the EMA so one bad
+        streak does not permanently forfeit the speedup)."""
+        if self._spec_churn > 0:
+            self._spec_churn -= 1
+        c = self.config
+        for ss in self._spec.values():
+            if not ss.enabled and ss.cooldown > 0:
+                ss.cooldown -= 1
+                if ss.cooldown == 0 and ss.fidelity >= c.spec_min_fidelity:
+                    ss.enabled = True
+                    ss.ema = 1.0
+
     # -- one decode iteration over all in-flight requests -------------------
 
     def _decode_step(self) -> List[ServeResult]:
         ex = self.executor
         cfg = self.config
+        self._tick_spec_gates()
         # split finished from still-running; a device-resident request has
         # ex.buffered(rid) committed tokens not yet reflected in s.tokens
         continuing: List[_ReqState] = []
         finishing: List[_ReqState] = []
+        rem: Dict[int, int] = {}  # tokens still to commit (incl. pending)
         for s in self.active:
             done = len(s.tokens) + ex.buffered(s.rid)
+            rem[s.rid] = s.gen_len - done
             (finishing if done + 1 >= s.gen_len else continuing).append(s)
+        # a lane can speculate when its signature is enabled and it has
+        # budget for at least one draft attempt (rem >= 3: the pending
+        # token, one draft, and the final token that must stay pending)
+        spec_on = (cfg.speculation and cfg.fused and self._spec_churn == 0)
+
+        def _eligible(s: _ReqState) -> bool:
+            return (rem[s.rid] >= 3
+                    and self._spec_state(chain_signature(s.steps),
+                                         s.steps).enabled)
+
         # partition the survivors into fused groups by full-chain signature
-        # (§5.2 batch cap applied chain-wide); chains the fused megastep
-        # cannot run fall back to the per-hop dispatch path
+        # (§5.2 batch cap applied chain-wide), refined by speculation
+        # eligibility so each group steps uniformly; chains the fused
+        # megastep cannot run fall back to the per-hop dispatch path
         fused_groups: List[List[_ReqState]] = []
         hop_states: List[_ReqState] = []
         if cfg.fused:
             for g in self.scheduler.form_chain_groups(
                     continuing, key_fn=lambda s: chain_signature(s.steps),
-                    max_batch=cfg.max_block_batch):
+                    max_batch=cfg.max_block_batch,
+                    subkey_fn=_eligible if spec_on else None):
                 try:
                     ex.fused_fn(g[0].steps, chain_signature(g[0].steps))
                     fused_groups.append(g)
@@ -445,22 +553,58 @@ class BlockEngine(Server):
         self.active = continuing
         if not continuing:
             return results
-        # one fused call per group runs the whole chain for one token,
-        # sampling on the device
+        # one fused call per group runs the whole chain for one token (or,
+        # speculating, up to spec_lookahead tokens drafted by the surrogate
+        # chain and verified exactly), sampling on the device
         for g in fused_groups:
-            ex.fused_step(g, self.kv)
+            if spec_on and _eligible(g[0]):
+                self._spec_group_step(g, rem)
+            else:
+                ex.fused_step(g, self.kv)
         if hop_states:
             # per-hop states emit host-side: the pending token lands in
             # s.tokens now and also seeds this step's chain walk
             for s in hop_states:
                 s.tokens.append(s.next_token)
             self._run_hops(hop_states)
-        # one decode_step instant per in-flight request: the host-side
-        # dispatch timestamp is the per-step trace marker
+        # one decode_step instant per in-flight request: each engine step
+        # advances every continuing request by at least one token (fused
+        # groups device-resident, spec groups by 1..lookahead, per-hop
+        # host-side), so the host-side dispatch timestamp is the per-step
+        # trace marker
         t = time.perf_counter()
         for s in continuing:
             self.tracer.event(s.rid, "decode_step", t=t)
         return results
+
+    def _spec_group_step(self, g: List[_ReqState], rem: Dict[int, int]
+                         ) -> None:
+        """Run one speculative megastep for a fused group and feed the
+        outcome back into the per-signature gate: per-lane budgets keep the
+        pending-token finish protocol intact, the accept-rate EMA updates
+        from the realized hit rate, and a signature whose EMA falls below
+        ``spec_min_accept`` is disabled with a retry cooldown."""
+        cfg = self.config
+        sig = chain_signature(g[0].steps)
+        ss = self._spec[sig]
+        budgets = [rem[s.rid] - 1 for s in g]
+        att, acc, cnt = self.executor.spec_step(
+            g, self.kv, ss.sur_steps, cfg.spec_lookahead, budgets)
+        for i, s in enumerate(g):
+            self.tracer.event(s.rid, "spec", attempts=int(att[i]),
+                              accepted=int(acc[i]), committed=int(cnt[i]))
+        total_att = int(att.sum())
+        if total_att:
+            rate = float(acc.sum()) / total_att
+            a = cfg.spec_ema_alpha
+            ss.ema = (1.0 - a) * ss.ema + a * rate
+            if ss.ema < cfg.spec_min_accept:
+                ss.enabled = False
+                ss.cooldown = cfg.spec_retry_steps
+        if self._c_spec_attempts.value:
+            self.metrics.set_gauge(
+                "spec_accept_rate",
+                self._c_spec_hits.value / self._c_spec_attempts.value)
 
     def _run_hops(self, states: List[_ReqState]) -> None:
         """Per-hop fallback (parity oracle): walk the chains hop-by-hop in

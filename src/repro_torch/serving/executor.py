@@ -32,6 +32,7 @@ from repro_torch.core.blocks import (
     block_decode_paged,
     block_prefill_raw,
     chain_decode_fused,
+    chain_decode_spec_fused,
     chain_prefill_fused,
     chain_signature,
 )
@@ -65,11 +66,14 @@ class DecodeState:
     ``states`` are the engine's per-request records (duck-typed: ``rid``,
     ``tokens``, ``next_token``, ``probs_last``, ``kv_len``).
 
-    ``emitted`` holds one device ``(B,)`` token vector per fused step (the
-    reference's ``(tokens, counts)`` commit buffers carry speculative
-    multi-token commits, which wait for the speculation slice);
-    ``buffered_counts`` mirrors the per-lane totals on the host so the
-    engine's finish logic sees exact progress without a sync.
+    ``emitted`` entries are ``(tokens, counts)`` draft/commit buffers: a
+    device ``(B, c)`` token block plus the host ``(B,)`` per-lane count of
+    how many of its columns committed.  A plain fused step appends a
+    one-column block with count 1 everywhere; a speculative step appends
+    its ``(B, lookahead)`` commit candidates with the per-lane accepted
+    counts.  ``buffered_counts`` mirrors the running per-lane totals on
+    the host so the engine's finish logic sees exact progress without
+    materializing the token backlog.
     """
     rids: Tuple[int, ...]
     sig: Tuple
@@ -78,7 +82,8 @@ class DecodeState:
     kv_len: torch.Tensor      # (B,) tokens cached, tracked on the device
     tables: Tuple[torch.Tensor, ...]  # staged (B, n) page table per attn hop
     kv_len0: List[int]        # host kv_len at creation (host mirror base)
-    emitted: List[torch.Tensor] = field(default_factory=list)
+    emitted: List[Tuple[torch.Tensor, np.ndarray]] = field(
+        default_factory=list)
     buffered_counts: List[int] = field(default_factory=list)  # per lane
     probs: Optional[torch.Tensor] = None  # (B, V) probs of latest next_token
 
@@ -100,6 +105,8 @@ class BlockExecutor:
         self._c_decode_tokens = self.metrics.counter("decode_tokens")
         self._c_group_calls = self.metrics.counter("group_calls")
         self._c_host_syncs = self.metrics.counter("host_syncs")
+        self._c_spec_attempts = self.metrics.counter("spec_attempts")
+        self._c_spec_hits = self.metrics.counter("spec_hits")
         # paged-attention calls issued (one per attention hop per call): the
         # number of kernel launches the decode path should account for
         self._c_attn_calls = self.metrics.counter("attn_calls")
@@ -114,6 +121,8 @@ class BlockExecutor:
         self._block_fns: Dict[Tuple, object] = {}
         # fused megastep per chain signature: (fn, pool_keys, n_attn_hops)
         self._fused_fns: Dict[Tuple, Tuple[object, Tuple, int]] = {}
+        # speculative megastep per (chain sig, surrogate sig, lookahead)
+        self._spec_fns: Dict[Tuple, Tuple[object, Tuple, int]] = {}
         # device-resident decode state per fused group, keyed by rid tuple
         self.decode_states: Dict[Tuple[int, ...], DecodeState] = {}
         self._rid_group: Dict[int, Tuple[int, ...]] = {}
@@ -270,6 +279,35 @@ class BlockExecutor:
         self._fused_fns[sig] = out
         return out
 
+    def spec_fn(self, steps, sur_steps, sig, lookahead: int):
+        """Draft-verify megastep (paper §5.2) per (chain signature,
+        surrogate signature, lookahead); returns (fn, pool_keys,
+        n_attn_hops).  The surrogate chain must share the full chain's
+        KV-pool layout (FFN-only surrogates guarantee this); verification
+        reuses the plain fused step's calls, so committed tokens are
+        bit-identical to the plain fused path."""
+        key = (sig, chain_signature(sur_steps), lookahead)
+        cached = self._spec_fns.get(key)
+        if cached is not None:
+            return cached
+        impl, dtype = self.attn_impl, self.compute_dtype
+        pool_keys, pool_index = self._pool_layout(steps)
+        sur_keys, sur_index = self._pool_layout(sur_steps)
+        if sur_keys != pool_keys or sur_index != pool_index:
+            raise ValueError(
+                "surrogate chain must share the full chain's KV-pool layout")
+
+        def fn(tok, pools_k, pools_v, tables, kv_len, budget):
+            # the slabs are written in place (the reference donates them)
+            return chain_decode_spec_fused(
+                steps, sur_steps, pool_index, tok, pools_k, pools_v, tables,
+                kv_len, budget, lookahead=lookahead, attn_impl=impl,
+                compute_dtype=dtype)
+
+        out = (fn, tuple(pool_keys), len(pool_index))
+        self._spec_fns[key] = out
+        return out
+
     def buffered(self, rid: int) -> int:
         """Tokens a request has committed since its host state was last
         synced (0 when it is not device-resident)."""
@@ -301,12 +339,15 @@ class BlockExecutor:
         if not ds.emitted:
             return  # never stepped: host state is still authoritative
         # one host sync: the backlog, pending tokens and probs come together
-        backlog = torch.stack(ds.emitted, dim=1).cpu().numpy()  # (B, steps)
+        backlog = torch.cat([t for t, _ in ds.emitted], dim=1).cpu().numpy()
         nxt = ds.next_token.cpu().numpy()
         probs = ds.probs.cpu().numpy()
         self._c_host_syncs.inc()
         for i, s in enumerate(ds.states):
-            s.tokens.extend(int(tok) for tok in backlog[i])
+            col = 0
+            for t, cnt in ds.emitted:
+                s.tokens.extend(int(tok) for tok in backlog[i, col:col + cnt[i]])
+                col += t.shape[1]
             s.next_token = int(nxt[i])
             s.probs_last = probs[i]
             s.kv_len = ds.kv_len0[i] + ds.buffered_counts[i]
@@ -351,13 +392,67 @@ class BlockExecutor:
         self._h_group_batch.observe(len(states))
         nxt, probs, _, _, kv_len = fn(ds.next_token, pk, pv, ds.tables,
                                       ds.kv_len)
-        ds.emitted.append(ds.next_token)
-        for i in range(len(states)):
+        B = len(states)
+        ds.emitted.append((ds.next_token[:, None], np.ones(B, np.int64)))
+        for i in range(B):
             ds.buffered_counts[i] += 1
         ds.next_token = nxt
         ds.probs = probs
         ds.kv_len = kv_len
-        self._c_decode_tokens.inc(len(states))
+        self._c_decode_tokens.inc(B)
+
+    def spec_step(self, states: List, kv: KVManager, sur_steps,
+                  lookahead: int, budgets: List[int]
+                  ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+        """One draft-verify megastep for one fused group (paper §5.2): the
+        surrogate chain drafts ``lookahead - 1`` tokens, the full chain
+        verifies all positions in the same call, and per-lane
+        accept/rollback happens on the device.  Commits 1..lookahead tokens
+        per lane; returns host ``(attempts, hits, committed)`` arrays (one
+        small count sync per call — the engine needs exact per-lane
+        progress for finish decisions).  ``budgets[i]`` is how many tokens
+        lane i may still commit; the device clamps drafts so the
+        pending-token protocol never overshoots it.
+
+        Each call walks the chain 2k - 1 times (k - 1 drafts, k verifies),
+        so it issues n_attn * (2k - 1) paged-attention calls and, the
+        surrogate chain keeping each hop's adapters, the LoRA projections
+        of 2k - 1 walks."""
+        rids = tuple(s.rid for s in states)
+        ds = self.decode_states.get(rids)
+        if ds is None:
+            ds = self._make_state(states, kv)
+        steps = states[0].steps
+        fn, pool_keys, n_attn = self.spec_fn(steps, sur_steps, ds.sig,
+                                             lookahead)
+        pools = [kv.pools[k] for k in pool_keys]
+        pk = tuple(p.k_pages for p in pools)
+        pv = tuple(p.v_pages for p in pools)
+        walks = 2 * lookahead - 1
+        self._c_group_calls.inc()
+        self._c_attn_calls.inc(n_attn * walks)
+        self._c_lora_calls.inc(_lora_projections(steps) * lookahead
+                               + _lora_projections(sur_steps)
+                               * (lookahead - 1))
+        self._h_group_batch.observe(len(states))
+        budget = self._tensor(budgets)
+        (commit_tok, commit_cnt, accepted, attempts, nxt, probs,
+         _, _, kv_len) = fn(ds.next_token, pk, pv, ds.tables, ds.kv_len,
+                            budget)
+        # one host sync: the three count vectors come together
+        cnt_h, acc_h, att_h = torch.stack(
+            [commit_cnt, accepted, attempts]).cpu().numpy().astype(np.int64)
+        self._c_host_syncs.inc()
+        ds.emitted.append((commit_tok, cnt_h))
+        for i in range(len(states)):
+            ds.buffered_counts[i] += int(cnt_h[i])
+        ds.next_token = nxt
+        ds.probs = probs
+        ds.kv_len = kv_len
+        self._c_decode_tokens.inc(int(cnt_h.sum()))
+        self._c_spec_attempts.inc(int(att_h.sum()))
+        self._c_spec_hits.inc(int(acc_h.sum()))
+        return att_h, acc_h, cnt_h
 
     # -- decode: per-hop batched group execution (fallback path) -------------
 

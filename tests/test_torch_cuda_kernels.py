@@ -228,6 +228,54 @@ def test_paged_attend_only_matches_fused_bitwise(card, dtype):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_paged_decode_lookahead_writes_reach_the_last_slot(card, dtype):
+    """Speculation's draft and verify walks write at kv_len .. kv_len + 3
+    (lookahead 4), up to the last slot a row's own pages hold: the engine
+    sizes each slot with that much headroom.  Four consecutive fused steps
+    ending on each row's last slot, across page and split edges, in a
+    table padded with the trash page to the widest row: after every step
+    both slabs are bitwise what ``write_token_to_pages`` makes, so no byte
+    outside the written slot changes (the trash page and pages no table
+    references included), and the outputs agree with the plain version."""
+    page, ahead = 16, 4
+    own = [2, SPLIT // page, SPLIT // page + 1, 2 * SPLIT // page + 1,
+           3 * SPLIT // page]  # last slots 31, 127, 143, 271, 383
+    B, nps, KVH, Hq, hd = len(own), max(own), 4, 32, 64
+    dt = getattr(torch, dtype)
+    rng = np.random.RandomState(3)
+    P = 1 + sum(own) + 3  # the trash page, the rows' pages, three spare
+
+    def arr(*shape):
+        return torch.from_numpy(rng.standard_normal(shape).astype(
+            np.float32)).to(card, dt)
+
+    k, v = arr(P, page, KVH, hd), arr(P, page, KVH, hd)
+    pages = rng.permutation(sum(own)) + 1
+    tables = np.zeros((B, nps), np.int32)
+    at = 0
+    for b, n in enumerate(own):
+        tables[b, :n] = pages[at:at + n]
+        at += n
+    tables = torch.from_numpy(tables).to(card)
+    kv0 = torch.tensor([n * page - ahead for n in own], dtype=torch.int32,
+                       device=card)
+    for j in range(ahead):
+        q, kn, vn = arr(B, Hq, hd), arr(B, KVH, hd), arr(B, KVH, hd)
+        kv_len = kv0 + j
+        want_k, want_v = write_token_to_pages(k.clone(), v.clone(), tables,
+                                              kv_len, kn, vn)
+        want = paged_attention_ref(q, want_k, want_v, tables, kv_len + 1)
+        o = paged_decode_step(q, kn, vn, k, v, tables, kv_len)[0]
+        torch.cuda.synchronize()
+        assert torch.equal(k, want_k) and torch.equal(v, want_v), j
+        torch.testing.assert_close(o.float(), want.float(), **TOL[dtype])
+        if dtype == "bfloat16":
+            assert bf16_ulp_err(o, want) <= 1.0
+    assert (kv0 + ahead).tolist() == [n * page for n in own]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_paged_attention_row_without_keys_is_zero(card, dtype):
     """Attend only, a row of length 0 beside rows with several splits: its
     output is 0 (no live split), as the Pallas kernel's; the other rows
