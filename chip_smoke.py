@@ -8,7 +8,11 @@ script exits non-zero without printing a result:
 
 1. environment: the card (``nvidia-smi``), torch and CUDA versions, and the
    build of the three hand-written CUDA kernels from this checkout's
-   sources (one ``nvcc`` per source, all at once);
+   sources (one ``nvcc`` per source, all at once); then gemm_rows: whether
+   a row of cuBLAS's bf16 products at the engine's shapes is bitwise the
+   same whatever the call's row count M (decode widths 1-16; a request's
+   prompt alone against its padded prefill group), which the recompute
+   below relies on;
 2. kernels: each CUDA kernel against its plain PyTorch version on the
    card, in bf16 and fp32 (TF32 off), with the tolerances of
    ``tests/test_kernels.py`` -- paged decode attention (2e-2 / 2e-5, bf16
@@ -47,26 +51,34 @@ script exits non-zero without printing a result:
    three apps, served once cold (timed apart), once as they come and once
    with one app-lora request spilled to host memory and one base request
    preempted for recompute after four decode steps; all three runs' tokens
-   must be bitwise equal, except that the recomputed request may flip a
-   token where the ref path's top-2 logit margin is not clear (its
-   replayed positions' KV comes from flash, not from the decode kernel;
-   the flip is reported with its step and margin), and the recompute's
-   prefill runs at its unpadded length (the flash kernel is then held
-   against its plain version at that length);
+   must be bitwise equal, the recomputed request's too (its prompt is
+   prefilled again at its unpadded length, where the flash kernel is then
+   held against its plain version, and each emitted position is rebuilt by
+   the decode step that first wrote it);
 5. speculation: the engine phase's 12 requests on fresh engines with
    lookahead 4 -- spec-OFF, spec-ON at the default prune ratio, forced
    accept (prune 0: every draft a hit) and forced reject (each surrogate
    lm_head negated: no hit, until the accept-rate gate turns each
    signature off), then spill and recalc preemption of a request whose
    group holds speculative commits not yet synced; every run's tokens
-   must equal spec-OFF's, except a flip where the ref path's top-2 logit
-   margin is not clear (reported with the calls that computed the token
-   in both runs and their group widths), every kernel's launches must
+   must equal spec-OFF's, except a flip of a request not preempted where
+   the ref path's top-2 logit margin is not clear (reported with the calls
+   that computed the token in both runs and their group widths; the
+   preempted request must be bitwise), every kernel's launches must
    equal its executor counter and the paged launches the chain walks
    counted from the calls (2k - 1 per speculative call); with tokens/s,
    step wall, accept rate, each signature's probe fidelity and gate,
    peak memory and two profiled forced-accept steps;
-6. parity on the card: the fused megastep against the per-hop path, token
+6. adaptive: ``adaptive_serving_similarity`` on vicuna (its FPFT layer
+   swapped for the equivalent base layer) over four 24-token prompts, six
+   tokens each, on the CUDA route and on the kernels' plain versions
+   (similarities within 1e-2), with ``shared_param_fraction`` of app-lora;
+   then launch: ``repro_torch.launch.serve``'s real backend at
+   TinyLlama-1.1B width (its own demo zoo, speculation on, 12 requests)
+   and its sim backend at 20 apps, each printing the launcher's JSON (the
+   sim's times are modeled from H100 constants, not measured); every
+   kernel's launches equal the executor's calls in both real runs;
+7. parity on the card: the fused megastep against the per-hop path, token
    for token, and ``attn_impl="cuda"`` against ``attn_impl="ref"`` (the
    three kernels' plain versions), equal wherever the ref run's top-2
    logit margin is clear.
@@ -96,6 +108,7 @@ import torch  # noqa: E402
 
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.core import peft  # noqa: E402
+from repro_torch.core.peft import shared_param_fraction  # noqa: E402
 from repro_torch.core.blocks import (  # noqa: E402
     chain_prefill_fused,
     chain_signature,
@@ -121,9 +134,14 @@ from repro_torch.kernels.paged_attention.ops import (  # noqa: E402
 from repro_torch.kernels.paged_attention.ref import (  # noqa: E402
     paged_attention_ref,
 )
+from repro_torch.launch import serve as launcher  # noqa: E402
 from repro_torch.serving.api import ServeRequest  # noqa: E402
 from repro_torch.serving.demo import build_demo_zoo  # noqa: E402
-from repro_torch.serving.engine import BlockEngine, EngineConfig  # noqa: E402
+from repro_torch.serving.engine import (  # noqa: E402
+    BlockEngine,
+    EngineConfig,
+    adaptive_serving_similarity,
+)
 from repro_torch.serving.executor import _bucket  # noqa: E402
 
 # H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s; dense bf16 tensor-core
@@ -193,11 +211,12 @@ def read_launches() -> dict:
     return {name: module.launches for name, (module, _, _) in KERNELS.items()}
 
 
-def check_launches(launches: dict, stats, what: str) -> None:
+def check_launches(launches: dict, stats, what: str, off_path=()) -> None:
     """Each kernel launched exactly as often as the executor issued its
-    calls, and at least once."""
+    calls, and at least once unless it is ``off_path`` (then never)."""
     for name, counter in KERNEL_COUNTERS.items():
-        if stats[counter] <= 0 or launches[name] != stats[counter]:
+        if (stats[counter] == 0) != (name in off_path) \
+                or launches[name] != stats[counter]:
             raise RuntimeError(f"{what}: {name} launches {launches[name]} != "
                                f"executor {counter} {stats[counter]}")
 
@@ -208,6 +227,83 @@ def nvidia_smi() -> str:
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60, check=True)
     return out.stdout.strip().splitlines()[0]
+
+
+# ---------------------------------------------------------------------------
+# gemm_rows: does a row of cuBLAS's bf16 GEMM depend on M?
+# ---------------------------------------------------------------------------
+
+
+DECODE_M = tuple(range(1, 17))  # decode group widths (max_block_batch 16)
+
+
+def gemm_shapes(cfg):
+    """(K, N) of every dense product of a hop: q and o, k and v, gate and
+    up, down, lm_head."""
+    D, hd = cfg.d_model, cfg.resolved_head_dim
+    return sorted({(D, cfg.num_heads * hd), (D, cfg.num_kv_heads * hd),
+                   (D, cfg.d_ff), (cfg.d_ff, D), (D, cfg.vocab_size)})
+
+
+def row_classes(x, w, ms):
+    """Group the row counts ``ms``: M joins the class of the first M' whose
+    product ``x[:M'] @ w`` agrees bitwise with ``x[:M] @ w`` on the rows
+    both have.  One class: rows do not depend on M."""
+    outs = {m: x[:m] @ w for m in ms}
+    classes = []
+    for m in ms:
+        for c in classes:
+            n = min(m, c[0])
+            if torch.equal(outs[m][:n], outs[c[0]][:n]):
+                c.append(m)
+                break
+        else:
+            classes.append([m])
+    return classes
+
+
+def gemm_rows_phase(cfg, paths, smi):
+    """Whether a row of the engine's bf16 products is bitwise the same
+    whatever the number of rows M in the call: at decode widths 1-16, and
+    in prefill, a request's S rows alone against the same rows inside its
+    group's padded (B x bucket) call, for every prefill group of
+    ``paths``.  A recompute that rebuilds KV at another M than the one
+    that first wrote it is bitwise only if every shape is independent."""
+    g = torch.Generator(DEVICE).manual_seed(11)
+    shapes = []
+    for K, N in gemm_shapes(cfg):
+        w = (torch.randn(K, N, generator=g, device=DEVICE) / K ** 0.5).to(
+            torch.bfloat16)
+        x = torch.randn(max(DECODE_M), K, generator=g,
+                        device=DEVICE).to(torch.bfloat16)
+        prefill = []
+        for reqs in paths:
+            groups = {}
+            for r in reqs:
+                key = (r.app, _bucket(r.prompt_len))
+                groups.setdefault(key, []).append(r.prompt_len)
+            for (_, bucket), lens in sorted(groups.items()):
+                xb = torch.randn(len(lens) * bucket, K, generator=g,
+                                 device=DEVICE).to(torch.bfloat16)
+                yb = xb @ w
+                for b, S in enumerate(lens):
+                    rows = slice(b * bucket, b * bucket + S)
+                    ys = xb[rows] @ w
+                    differ = int((ys != yb[rows]).any(dim=1).sum())
+                    prefill.append({"M": len(lens) * bucket, "S": S,
+                                    "rows_differ": differ})
+        classes = row_classes(x, w, DECODE_M)
+        shapes.append({"K": K, "N": N, "decode_classes": classes,
+                       "prefill": prefill,
+                       "independent": len(classes) == 1
+                       and not any(p["rows_differ"] for p in prefill)})
+        del w, x
+    torch.cuda.synchronize()
+    row = {"phase": "gemm_rows", "dtype": "torch.bfloat16",
+           "decode_M": list(DECODE_M), "shapes": shapes,
+           "independent": all(s["independent"] for s in shapes), "card": smi}
+    emit(row)
+    return row
 
 
 # ---------------------------------------------------------------------------
@@ -960,40 +1056,29 @@ def long_prefill_phase(cfg, zoo, smi):
         if not np.array_equal(c.tokens, want.tokens):
             raise RuntimeError(f"long_prefill: {r.app} tokens {c.tokens} on "
                                f"a fresh engine != {want.tokens}")
-    flips = []
+    # bitwise, the recomputed request too: its prompt is prefilled again at
+    # its unpadded length (flash's rows and the GEMMs' at these shapes do
+    # not depend on the call's width: phase gemm_rows) and each emitted
+    # position is rebuilt by the decode step that first wrote it
     for rid, r, want in zip(rids, reqs, plain):
-        got = done[rid].tokens
-        if np.array_equal(got, want.tokens):
-            continue
-        if rid != recalc:
+        if not np.array_equal(done[rid].tokens, want.tokens):
             raise RuntimeError(f"long_prefill: rid {rid} ({r.app}) tokens "
-                               f"{got} != unpreempted {want.tokens}")
-        # The recompute replays the emitted tokens through prefill, so their
-        # KV comes from the flash kernel, equal to the decode kernel's only
-        # to rounding: a flip where the next token's top-2 logit margin is
-        # not clear is reported; one at a clear margin fails.
-        j = int(np.nonzero(got != want.tokens)[0][0])
-        margin = ref_margin(zoo, r.app, np.concatenate(
-            [r.prompt_tokens, want.tokens[:j]]))
-        flips.append({"rid": rid, "app": r.app, "at": j, "emitted": emitted,
-                      "ref_margin": margin, "tokens": got.tolist(),
-                      "unpreempted": want.tokens.tolist()})
-        if margin > CLEAR_MARGIN:
-            raise RuntimeError(f"long_prefill: recomputed rid {rid} diverges "
-                               f"at step {j} where the ref margin {margin} "
-                               f"is clear (> {CLEAR_MARGIN})")
+                               f"{done[rid].tokens} != unpreempted "
+                               f"{want.tokens}")
     if stats["spills"] != 1 or stats["recalc_readmits"] != 1:
         raise RuntimeError(f"long_prefill: spills {stats['spills']}, "
                            f"recalc_readmits {stats['recalc_readmits']}")
     recalc_events = [e["meta"] for e in done[recalc].info["trace"]["events"]
                      if e["name"] == "recalc"]
-    recalc_len = reqs[rids.index(recalc)].prompt_len + emitted
+    prompt_len = reqs[rids.index(recalc)].prompt_len
     n_attn = cfg.num_layers
-    if [e["tokens"] for e in recalc_events] != [recalc_len] \
+    if recalc_events != [{"tokens": prompt_len + emitted,
+                          "prefilled": prompt_len, "replayed": emitted}] \
             or readmit_flash != n_attn or readmit_calls != n_attn:
-        raise RuntimeError(f"long_prefill: recalc prefill {recalc_events}, "
+        raise RuntimeError(f"long_prefill: recalc {recalc_events}, "
                            f"{readmit_flash} flash launches, want one chain "
-                           f"of {n_attn} at the unpadded {recalc_len} tokens")
+                           f"of {n_attn} at the unpadded {prompt_len} prompt "
+                           f"tokens and {emitted} replayed")
     spill_bytes = [e["meta"]["kv_bytes"]
                    for e in done[spilled].info["trace"]["events"]
                    if e["name"] == "spill"]
@@ -1008,9 +1093,10 @@ def long_prefill_phase(cfg, zoo, smi):
            "decode_tok_per_s": decoded / max(wall - prefill_s, 1e-9),
            "max_memory_allocated_bytes": peak, "spill_bytes": spill_bytes,
            "spilled": {"rid": spilled, "app": "app-lora"},
-           "recalc": {"rid": recalc, "app": "base", "tokens": recalc_len,
+           "recalc": {"rid": recalc, "app": "base",
+                      "prefilled": prompt_len, "replayed": emitted,
                       "flash_launches": readmit_flash},
-           "bitwise_equal": not flips, "recompute_flips": flips,
+           "bitwise_equal": True,
            "launches": launches,
            "executor_calls": {c: stats[c] for c in KERNEL_COUNTERS.values()},
            "card": smi}
@@ -1096,18 +1182,23 @@ def negate_drafts(eng) -> None:
             adapters)
 
 
-def spec_flips(zoo, reqs, got, want, logs, what):
+def spec_flips(zoo, reqs, got, want, logs, what, exact=()):
     """Tokens of ``got`` against spec-OFF's ``want``: each request whose
     stream differs is reported with the first differing token, the calls
     that computed it in both runs (kind, group width: cuBLAS may round a
     row differently at another M) and the ref path's top-2 logit margin
-    there; a flip at a clear margin fails."""
+    there; a flip at a clear margin fails, and any flip of a request in
+    ``exact`` (a preempted one: readmitted bitwise by design) fails."""
     flips = []
     for r, g, w in zip(reqs, got, want):
         diff = np.nonzero(g.tokens != w.tokens)[0]
         if not len(diff):
             continue
         j = int(diff[0])
+        if g.rid in exact:
+            raise RuntimeError(f"speculation {what}: preempted rid {g.rid} "
+                               f"({r.app}) diverges from spec-OFF at token "
+                               f"{j}: {g.tokens} != {w.tokens}")
         margin = ref_margin(zoo, r.app, np.concatenate(
             [r.prompt_tokens, w.tokens[:j]]))
         flips.append({"rid": g.rid, "app": r.app, "at": j,
@@ -1143,15 +1234,16 @@ def spec_row(name, eng, results, wall, log, launches, peak):
             "max_memory_allocated_bytes": peak}
 
 
-def check_walks(stats, log, n_attn, what):
+def check_walks(stats, log, n_attn, what, replayed=0):
     """Every decode call walked the chain as counted: one walk per plain
-    call, 2k - 1 per speculative call, n_attn paged launches per walk."""
-    walks = log["plain"] + (2 * SPEC_LOOKAHEAD - 1) * log["spec"]
+    call, 2k - 1 per speculative call, one per token a recompute replayed,
+    n_attn paged launches per walk."""
+    walks = log["plain"] + (2 * SPEC_LOOKAHEAD - 1) * log["spec"] + replayed
     if stats["attn_calls"] != n_attn * walks:
         raise RuntimeError(f"speculation {what}: attn_calls "
                            f"{stats['attn_calls']} != {n_attn} x {walks} "
                            f"walks ({log['plain']} plain, {log['spec']} "
-                           "speculative calls)")
+                           f"speculative calls, {replayed} replayed)")
 
 
 def spec_preempt_run(cfg, zoo, reqs, want, off_log, strategy):
@@ -1187,8 +1279,17 @@ def spec_preempt_run(cfg, zoo, reqs, want, off_log, strategy):
     launches = read_launches()
     stats = dict(eng.stats)
     what = f"speculation {strategy}"
+    recalc = [m for n, _, m in eng.tracer.trace(victim).events
+              if n == "recalc"]
+    if strategy == "recalc" and recalc != [
+            {"tokens": reqs[0].prompt_len + emitted,
+             "prefilled": reqs[0].prompt_len, "replayed": emitted}]:
+        raise RuntimeError(f"{what}: recompute {recalc}, want the "
+                           f"{reqs[0].prompt_len}-token prompt prefilled and "
+                           f"{emitted} emitted tokens replayed")
     check_launches(launches, stats, what)
-    check_walks(stats, log, cfg.num_layers, what)
+    check_walks(stats, log, cfg.num_layers, what,
+                replayed=sum(m["replayed"] for m in recalc))
     check_prefill_calls(stats, reqs, cfg.num_layers, what,
                         recalcs=int(strategy == "recalc"))
     key = "spills" if strategy == "spill" else "recalc_readmits"
@@ -1197,11 +1298,11 @@ def spec_preempt_run(cfg, zoo, reqs, want, off_log, strategy):
         raise RuntimeError(f"{what}: {key} {stats[key]}, spec "
                            f"{stats['spec_hits']}/{stats['spec_attempts']}")
     got = [done[r] for r in rids]
-    flips = spec_flips(zoo, reqs, got, want, (log, off_log), what)
+    flips = spec_flips(zoo, reqs, got, want, (log, off_log), what,
+                       exact=(victim,))
     return {"run": strategy, "rid": victim, "app": reqs[0].app,
             "unsynced_tokens": buffered, "tokens_done": emitted,
-            "recalc_tokens": reqs[0].prompt_len + emitted
-            if strategy == "recalc" else None,
+            "recalc": recalc[0] if recalc else None,
             "spec_attempts": stats["spec_attempts"],
             "spec_hits": stats["spec_hits"], "bitwise_equal": not flips,
             "flips": flips, "launches": launches}
@@ -1341,7 +1442,96 @@ def spec_profile(zoo, reqs, step_wall_p50):
 
 
 # ---------------------------------------------------------------------------
-# phase 6: parity on the card
+# phase 6: adaptive assembly (paper Fig. 20) and the serving launcher
+# ---------------------------------------------------------------------------
+
+
+ADAPTIVE_PROMPTS, ADAPTIVE_LEN, ADAPTIVE_GEN = 4, 24, 6
+SIM_NOTE = ("modeled: the discrete-event simulator's times come from the "
+            "H100 SXM constants of repro_torch.serving.cluster, not from "
+            "this card")
+
+
+def adaptive_phase(cfg, zoo, smi):
+    """``adaptive_serving_similarity`` on vicuna: its own chain against
+    the chain with its FPFT layer swapped for the equivalent base layer,
+    output distributions compared; the CUDA route's similarity must be
+    within 1e-2 of the kernels' plain versions' (``attn_impl="ref"``), and
+    the kernels' launches equal the executor's calls (vicuna has no LoRA
+    hop, so the LoRA kernel is off this path)."""
+    prompts = np.random.RandomState(7).randint(
+        0, cfg.vocab_size, size=(ADAPTIVE_PROMPTS, ADAPTIVE_LEN)).astype(
+            np.int32)
+    eng = engine(zoo)
+    reset_launches()
+    t0 = time.perf_counter()
+    sim, swapped = adaptive_serving_similarity(zoo, eng, "vicuna", prompts,
+                                               gen_len=ADAPTIVE_GEN)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_launches()
+    stats = dict(eng.stats)
+    check_launches(launches, stats, "adaptive", off_path=("batched_lora",))
+    ref_sim, ref_swapped = adaptive_serving_similarity(
+        zoo, engine(zoo, attn_impl="ref"), "vicuna", prompts,
+        gen_len=ADAPTIVE_GEN)
+    if swapped < 1 or ref_swapped != swapped \
+            or not abs(sim - ref_sim) <= 1e-2:
+        raise RuntimeError(f"adaptive: {swapped} swapped, similarity {sim} "
+                           f"against the ref route's {ref_sim} "
+                           f"({ref_swapped} swapped)")
+    base = [zoo.blocks[st.block_id].params for st in zoo.chains["base"].steps]
+    adapters = [zoo.blocks[a].params for st in zoo.chains["app-lora"].steps
+                for a in st.adapter_ids]
+    row = {"phase": "adaptive", "model": MODEL, "app": "vicuna",
+           "prompts": ADAPTIVE_PROMPTS, "prompt_len": ADAPTIVE_LEN,
+           "gen_len": ADAPTIVE_GEN, "similarity": sim,
+           "ref_similarity": ref_sim, "blocks_swapped": swapped,
+           "shared_param_fraction_app_lora":
+           shared_param_fraction(base, adapters),
+           "wall_s": wall, "launches": launches,
+           "executor_calls": {c: stats[c] for c in KERNEL_COUNTERS.values()},
+           "card": smi}
+    emit(row)
+    return launches, row
+
+
+LAUNCH_REQUESTS, LAUNCH_GEN = 12, 16
+
+
+def launch_phase(smi):
+    """``repro_torch.launch.serve`` as a user runs it: the real backend at
+    TinyLlama-1.1B width on the card with the launcher's defaults
+    otherwise (its own demo zoo, speculation on), 12 requests; its JSON,
+    with every kernel's launches equal to the engine's counters; then the
+    sim backend's JSON at 20 apps, whose times are modeled."""
+    argv = ["--backend", "real", "--config", MODEL, "--device", DEVICE,
+            "--requests", str(LAUNCH_REQUESTS), "--gen-len", str(LAUNCH_GEN),
+            "--max-len", "64"]
+    args = launcher.build_parser().parse_args(argv)
+    reset_launches()
+    real = launcher.run_real(args)
+    torch.cuda.synchronize()
+    launches = read_launches()
+    check_launches(launches, real["engine_stats"], "launch")
+    if real["completed"] != LAUNCH_REQUESTS \
+            or real["generated_tokens"] != LAUNCH_REQUESTS * LAUNCH_GEN:
+        raise RuntimeError(f"launch: {real['completed']} completed, "
+                           f"{real['generated_tokens']} tokens")
+    sim = launcher.run_sim(launcher.build_parser().parse_args(
+        ["--backend", "sim", "--apps", "20"]))
+    if sim["completed"] != sim["completed_via_api"] or not sim["completed"]:
+        raise RuntimeError(f"launch sim: {sim}")
+    row = {"phase": "launch", "argv": argv, "real": real,
+           "launches": launches, "sim_argv": ["--backend", "sim", "--apps",
+                                              "20"],
+           "sim": sim, "sim_note": SIM_NOTE, "card": smi}
+    emit(row)
+    return launches, row
+
+
+# ---------------------------------------------------------------------------
+# phase 7: parity on the card
 # ---------------------------------------------------------------------------
 
 
@@ -1430,6 +1620,9 @@ def main():
                                for m, _, _ in KERNELS.values()]})
 
     cfg = get_config(MODEL)
+    t0 = time.perf_counter()
+    gemm_rows_phase(cfg, (traffic(cfg), long_traffic(cfg)), smi)
+    phase_s = {"gemm_rows": time.perf_counter() - t0}
     G_kv, hd = cfg.num_kv_heads, cfg.resolved_head_dim
     H = cfg.num_heads
     paged_cases = paged_attention_cases(cfg)
@@ -1465,7 +1658,7 @@ def main():
     split_sweep(D, {"q": H * hd, "v": G_kv * hd}, flush)
     del flush
     torch.cuda.empty_cache()
-    phase_s = {"kernels": time.perf_counter() - t0}
+    phase_s["kernels"] = time.perf_counter() - t0
 
     t0 = time.perf_counter()
     cfg, zoo = build_zoo()
@@ -1482,7 +1675,7 @@ def main():
     t0 = time.perf_counter()
     long_launches, long_row = long_prefill_phase(cfg, zoo, smi)
     # the recompute prefill's unpadded length, known only now
-    n = long_row["recalc"]["tokens"]
+    n = long_row["recalc"]["prefilled"]
     flush = torch.empty(64 << 20, dtype=torch.uint8, device=DEVICE)
     rows += flash_phase({f"main_recalc_B1_S{n}": (1, H, G_kv, n, hd, True)},
                         flush)
@@ -1491,13 +1684,19 @@ def main():
     t0 = time.perf_counter()
     spec_launches, spec = speculation_phase(cfg, zoo, smi)
     # the spec recompute prefill's unpadded length, known only now
-    n = next(p["recalc_tokens"] for p in spec["preemption"]
+    n = next(p["recalc"]["prefilled"] for p in spec["preemption"]
              if p["run"] == "recalc")
     flush = torch.empty(64 << 20, dtype=torch.uint8, device=DEVICE)
     rows += flash_phase({f"main_spec_recalc_B1_S{n}":
                          (1, H, G_kv, n, hd, True)}, flush)
     del flush
     phase_s["speculation"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    adaptive_launches, _ = adaptive_phase(cfg, zoo, smi)
+    phase_s["adaptive"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    launch_launches, launch = launch_phase(smi)
+    phase_s["launch"] = time.perf_counter() - t0
     t0 = time.perf_counter()
     fused_vs_per_hop(cfg, zoo)
     cuda_vs_ref(zoo, reqs, results)
@@ -1506,7 +1705,8 @@ def main():
     # each main-path run: counts set to 0 just before, read just after
     by_path = {"engine": eng_launches, **{
         f"long_prefill_{k}": v for k, v in long_launches.items()},
-        **spec_launches}
+        **spec_launches, "adaptive": adaptive_launches,
+        "launch": launch_launches}
     # the shape each kernel's ms stands for: paged attention's decode
     # batch; flash's costliest prefill call (the long path's largest
     # group); LoRA's decode q projection at the engine's app-lora batch,
@@ -1551,7 +1751,8 @@ def main():
           "phase_s": phase_s, "tok_per_s": eng_row["tok_per_s"],
           "long_prefill_tok_per_s": long_row["prefill_tok_per_s"],
           "speculation_tok_per_s": {r["run"]: r["tok_per_s"]
-                                    for r in spec["runs"]}})
+                                    for r in spec["runs"]},
+          "launch_tok_per_s": launch["real"]["tokens_per_s"]})
     emit({"kernels": line})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

@@ -8,9 +8,11 @@ parameters get identical ids in both packages.
 
 Numerics follow the reference: fp32 weights, activations in the compute
 dtype, weights cast to the activation dtype at use.  ``Block.compute_params``
-keeps one cached copy of each weight matrix in the activation dtype — the
+reads one cached copy of each weight matrix in the activation dtype — the
 same values the reference's per-use ``astype`` produces, bit for bit, but
-read at half the bytes in bf16 on every decode step.
+read at half the bytes in bf16 on every decode step.  The copy is cached
+per source tensor, so blocks that alias a tensor (a surrogate and its
+parent, a split attention/FFN block and its layer block) share one cast.
 
 The reference pins every hop boundary with ``jax.lax.optimization_barrier``
 so XLA cannot fuse across blocks.  Eager PyTorch never fuses across ops, so
@@ -25,6 +27,7 @@ from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
+from torch.utils.weak import WeakIdKeyDictionary
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.batched_lora.ops import batched_lora
@@ -93,6 +96,25 @@ def tree_hash(tree) -> str:
     return h.hexdigest()[:16]
 
 
+# source tensor -> {dtype: its cast}: one cast per tensor, whichever blocks
+# hold it; keyed by identity (a tensor's == is elementwise) and weakly, so
+# an entry lives as long as its source tensor
+_CASTS = WeakIdKeyDictionary()
+
+
+def _cast(t: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """``t.to(dtype)``, made once per (tensor, dtype) and shared."""
+    if t.dtype == dtype:  # no copy; an entry holding t would keep t alive
+        return t
+    casts = _CASTS.get(t)
+    if casts is None:
+        casts = _CASTS[t] = {}
+    out = casts.get(dtype)
+    if out is None:
+        out = casts[dtype] = t.to(dtype)
+    return out
+
+
 ATTENTION_KINDS = ("layer", "attention")  # block kinds that own KV state
 # parameters kept in fp32 at use: norm scales (rms_norm computes in fp32)
 # and the embedding (gathered in fp32, then cast, as in the reference)
@@ -136,12 +158,13 @@ class Block:
         return 2.0 * self.n_params
 
     def compute_params(self, dtype: torch.dtype) -> dict:
-        """The params as used in ``dtype`` compute: weights cast once and
-        cached (bitwise what a cast at every use gives), norm scales and
-        the embedding left in fp32."""
+        """The params as used in ``dtype`` compute: weights cast once per
+        tensor and shared with every block that aliases it (bitwise what a
+        cast at every use gives), norm scales and the embedding left in
+        fp32."""
         out = self._compute.get(dtype)
         if out is None:
-            out = {k: v if k in _FP32_AT_USE else v.to(dtype)
+            out = {k: v if k in _FP32_AT_USE else _cast(v, dtype)
                    for k, v in self.params.items()}
             self._compute[dtype] = out
             if self.kind == "lora":  # read off the device once, here

@@ -1,9 +1,13 @@
-"""Block equivalence (paper §4.1, C1) — the port of the parametric
-equivalence of ``repro.core.equivalence``.
+"""Block equivalence (paper §4.1, C1) — the port of
+``repro.core.equivalence``.
 
-Identical architecture: weighted parameter cosine similarity
-Eq(A_i, B_i) = sum_p s(A_i^p) cos(A_i^p, B_i^p) / sum_p s(A_i^p),
-with each cosine taken in float64 on the tensors' own device.
+- Identical architecture: weighted parameter cosine similarity
+  Eq(A_i, B_i) = sum_p s(A_i^p) cos(A_i^p, B_i^p) / sum_p s(A_i^p),
+  with each cosine taken in float64 on the tensors' own device.
+- Output distributions: cosine similarity of vocabulary probabilities, in
+  float64 on the host (adaptive serving, paper Fig. 20).  The cross-size
+  probe (``layerwise_vocab_probs``/``cross_size_equivalence``) needs the
+  other model families and is not ported yet.
 """
 from __future__ import annotations
 
@@ -41,3 +45,22 @@ def param_equivalence(params_a: dict, params_b: dict) -> float:
         den += s
     return num / max(den, 1.0)
 
+
+
+def _host_f64(x) -> np.ndarray:
+    if isinstance(x, torch.Tensor):
+        return x.detach().to("cpu", torch.float64).numpy()
+    return np.asarray(x, np.float64)
+
+
+def vocab_probability_similarity(probs_a, probs_b) -> float:
+    """Mean per-token cosine of two vocab-probability tensors (B, S, V),
+    torch or numpy — V may differ only if a shared probe tokenizer is
+    used; here V matches (same tokenizer family)."""
+    a = _host_f64(probs_a)
+    b = _host_f64(probs_b)
+    a = a.reshape(-1, a.shape[-1])
+    b = b.reshape(-1, b.shape[-1])
+    dot = (a * b).sum(-1)
+    denom = np.linalg.norm(a, axis=-1) * np.linalg.norm(b, axis=-1) + 1e-12
+    return float((dot / denom).mean())

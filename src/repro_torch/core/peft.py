@@ -10,6 +10,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.core.blocks import tree_leaves
 from repro_torch.models import layers as L
 
 
@@ -52,3 +53,16 @@ def create_bitfit(cfg: ModelConfig, gen: torch.Generator,
         "bk": normal((cfg.num_kv_heads, hd)),
         "bv": normal((cfg.num_kv_heads, hd)),
     } for _ in range(cfg.num_layers)]
+
+
+def _size(leaf) -> int:
+    return leaf.numel() if isinstance(leaf, torch.Tensor) else leaf.size
+
+
+def shared_param_fraction(foundation_params, adapter_trees) -> float:
+    """Paper Table 1: % of a fine-tuned model's params shared with the
+    foundation (foundation / (foundation + adapters)), counted in elements
+    of torch (or numpy) trees."""
+    base = sum(_size(x) for x in tree_leaves(foundation_params))
+    extra = sum(_size(x) for x in tree_leaves(adapter_trees))
+    return base / (base + extra)

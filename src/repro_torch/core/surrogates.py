@@ -19,6 +19,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from repro_torch.core import prng
 from repro_torch.core.blocks import Block, apply_block, tree_hash
 
 
@@ -106,17 +107,20 @@ def recover_with_lora(block: Block, surrogate: Block, probe, *,
     reference's momentum descent (m = 0.9 m + 0.1 g; p = p - lr m) on
     ``torch.autograd`` gradients.
 
-    ``A`` starts at 0.01 * N(0, 1) drawn from ``generator`` (seed 0 on the
-    CPU when none is given), or at ``a_init`` (D, rank) when given; ``B``
+    ``A`` starts at ``a_init`` (D, rank) when given, else at 0.01 * N(0, 1)
+    drawn from ``generator``, or, when neither is given, at the reference's
+    draw (the first key of ``split(PRNGKey(0))``, by ``core.prng``); ``B``
     starts at zero."""
     D = block.d_in
     dev = probe.device
-    if a_init is None:
-        g = generator if generator is not None else \
-            torch.Generator().manual_seed(0)
-        a = 0.01 * torch.randn(D, rank, generator=g, device=g.device)
-    else:
+    if a_init is not None:
         a = torch.from_numpy(np.array(a_init, np.float32))
+    elif generator is not None:
+        a = 0.01 * torch.randn(D, rank, generator=generator,
+                               device=generator.device)
+    else:
+        key = prng.split(prng.PRNGKey(0))[0]
+        a = torch.from_numpy(np.float32(0.01) * prng.normal(key, (D, rank)))
     a = a.to(device=dev, dtype=torch.float32)
     b = torch.zeros(rank, D, dtype=torch.float32, device=dev)
     with torch.no_grad():

@@ -205,6 +205,12 @@ class BlockZoo:
         self.equivalences[(a, b)] = score
         self.equivalences[(b, a)] = score
 
+    def equivalent_blocks(self, block_id: str) -> List[Tuple[str, float]]:
+        """(block id, score) of every block with an adaptive-serving
+        equivalence edge to ``block_id``."""
+        return [(b, s) for (a, b), s in self.equivalences.items()
+                if a == block_id]
+
     # ------------------------------------------------------------------
     # storage accounting (paper Fig. 5)
     # ------------------------------------------------------------------

@@ -1,8 +1,9 @@
 """Unified serving API (DESIGN.md §2) — a copy of ``repro.serving.api``
 kept inside the PyTorch port so the port imports nothing of ``repro``.
 
-Serving backends — the real-execution ``BlockEngine`` here, and the
-reference package's discrete-event ``Simulation`` — implement the same three
+Both serving backends — the discrete-event ``Simulation`` (cluster-scale
+control plane, modeled time) and the real-execution ``BlockEngine``
+(continuous batching with actual tensor numerics) — implement the same three
 verbs, so launchers, examples and tests never reach into engine internals:
 
     server.submit(ServeRequest(...)) -> rid

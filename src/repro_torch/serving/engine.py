@@ -38,7 +38,9 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from repro_torch.core import prng
 from repro_torch.core.blocks import Block, BlockChain, chain_signature
+from repro_torch.core.equivalence import vocab_probability_similarity
 from repro_torch.core.surrogates import surrogate_fidelity
 from repro_torch.core.zoo import BlockZoo
 from repro_torch.kernels.paged_attention.ops import IMPLS as ATTN_IMPLS
@@ -97,9 +99,6 @@ class _SpecSig:
     cooldown: int = 0           # engine steps until a disabled sig retries
 
 
-# the fidelity probe: (1, 8, d_in) hidden states of 0.1 * N(0, 1) from this
-# seed, as the reference probes with PRNGKey(0)
-_PROBE_SEED = 0
 
 
 @dataclass
@@ -181,6 +180,7 @@ class BlockEngine(Server):
         self._pending_prefill: List[_ReqState] = []  # admitted, not prefilled
         # per-chain-signature speculation state + global churn gate
         self._spec: Dict[Tuple, _SpecSig] = {}
+        self._probes: Dict[int, torch.Tensor] = {}  # d_in -> fidelity probe
         self._spec_churn = 0   # engine steps speculation stays off after
         #   a preemption (device-resident groups just re-formed; drafting
         #   into freshly moved KV slots amplifies thrash)
@@ -433,13 +433,18 @@ class BlockEngine(Server):
         if snap is not None:
             self.kv.restore(state.rid, snap, state.slot_tokens)
         else:
-            # recompute-on-readmit: replay prompt + emitted tokens to rebuild
-            # KV; the pending sampled token survives on the state untouched
-            prefix = np.concatenate(
-                [np.asarray(state.prompt_tokens, np.int32),
-                 np.asarray(state.tokens, np.int32)])
-            self.executor.prefill(state, prefix, self.kv, sample=False)
-            self.tracer.event(state.rid, "recalc", tokens=len(prefix))
+            # recompute-on-readmit: prefill the prompt, then rebuild each
+            # emitted position through the decode megastep that first wrote
+            # it (the reference replays both through prefill), so the KV is
+            # bitwise what it was wherever a GEMM row does not depend on the
+            # call's row count; the pending sampled token stays on the state
+            emitted = np.asarray(state.tokens, np.int32)
+            self.executor.prefill(state, state.prompt_tokens, self.kv,
+                                  sample=False)
+            self.executor.replay(state, emitted, self.kv)
+            self.tracer.event(state.rid, "recalc", tokens=state.kv_len,
+                              prefilled=state.prompt_len,
+                              replayed=len(emitted))
             self.metrics.inc("recalc_readmits")
         entry.preempted = False
         entry.payload = state
@@ -467,11 +472,8 @@ class BlockEngine(Server):
                 sid = self.zoo.surrogate_for(block.id, c.spec_prune_ratio,
                                              prune_kv=False)
                 sur = self.zoo.blocks[sid]
-                g = torch.Generator().manual_seed(_PROBE_SEED)
-                probe = (0.1 * torch.randn(1, 8, block.d_in, generator=g)).to(
-                    device=self.device, dtype=self.compute_dtype)
-                fidelity = min(fidelity,
-                               surrogate_fidelity(block, sur, probe))
+                fidelity = min(fidelity, surrogate_fidelity(
+                    block, sur, self._probe(block.d_in)))
                 sur_steps.append((sur, adapters))
                 pruned += 1
             else:
@@ -481,6 +483,17 @@ class BlockEngine(Server):
                       enabled=enabled)
         self._spec[sig] = ss
         return ss
+
+    def _probe(self, d_in: int) -> torch.Tensor:
+        """The fidelity probe the reference draws: 0.1 * N(0, 1) hidden
+        states of shape (1, 8, d_in) from ``PRNGKey(0)``, drawn on the host
+        once per width and moved to the device once."""
+        probe = self._probes.get(d_in)
+        if probe is None:
+            x = np.float32(0.1) * prng.normal(prng.PRNGKey(0), (1, 8, d_in))
+            probe = self._probes[d_in] = torch.from_numpy(x).to(
+                device=self.device, dtype=self.compute_dtype)
+        return probe
 
     def _tick_spec_gates(self) -> None:
         """Advance the per-step speculation gates: churn pause countdown and
@@ -695,3 +708,26 @@ class BlockEngine(Server):
         used = results[rids[0]].info["adaptive_blocks_used"]
         return GenerationResult(tokens=tokens, probs_last=probs,
                                 adaptive_blocks_used=used)
+
+
+def adaptive_serving_similarity(zoo: BlockZoo, engine: BlockEngine,
+                                app: str, prompt_tokens, gen_len: int = 8
+                                ) -> Tuple[float, int]:
+    """Paper Fig. 20: serve a request on its own chain vs an adaptively
+    adjusted chain (each block with an equivalence edge swapped for its
+    most equivalent block); cosine similarity of the output vocabulary
+    probabilities.  Returns (similarity, blocks swapped)."""
+    chain = zoo.chains[app]
+    override = {}
+    for step in chain.steps:
+        eqs = zoo.equivalent_blocks(step.block_id)
+        if eqs:
+            override[step.block_id] = max(eqs, key=lambda e: e[1])[0]
+    base = engine.generate(chain, prompt_tokens, gen_len)
+    if not override:
+        return 1.0, 0
+    alt = engine.generate(chain, prompt_tokens, gen_len,
+                          block_override=override)
+    sim = vocab_probability_similarity(base.probs_last[:, None],
+                                       alt.probs_last[:, None])
+    return sim, len(override)

@@ -198,6 +198,27 @@ class BlockExecutor:
             self._c_host_syncs.inc()
         self._c_prefills.inc()
 
+    def replay(self, state, tokens: np.ndarray, kv: KVManager) -> None:
+        """Rebuild the KV of ``tokens`` (already emitted, so already
+        sampled) after the cached ``state.kv_len`` positions, teacher-forced
+        through the plain decode megastep: token j is written at position
+        kv_len + j by the same call that first wrote it, at a batch of one.
+        Writes KV only: what the walks sample is discarded, and the pending
+        token stays on the state."""
+        fn, pool_keys, n_attn = self.fused_fn(state.steps,
+                                              chain_signature(state.steps))
+        pools = [kv.pools[k] for k in pool_keys]
+        pk = tuple(p.k_pages for p in pools)
+        pv = tuple(p.v_pages for p in pools)
+        tables = self._tables([state], kv)
+        tok = self._tensor(tokens)
+        kv_len = self._tensor([state.kv_len])
+        for j in range(len(tokens)):
+            *_, kv_len = fn(tok[j:j + 1], pk, pv, tables, kv_len)
+        self._c_attn_calls.inc(n_attn * len(tokens))
+        self._c_lora_calls.inc(_lora_projections(state.steps) * len(tokens))
+        state.kv_len += len(tokens)
+
     def prefill_batched(self, states: List, kv: KVManager) -> None:
         """Batched multi-request prefill: pad each request's prompt to a
         power-of-two bucket and run one chain call per (chain signature,
@@ -352,21 +373,25 @@ class BlockExecutor:
             s.probs_last = probs[i]
             s.kv_len = ds.kv_len0[i] + ds.buffered_counts[i]
 
-    def _make_state(self, states: List, kv: KVManager) -> DecodeState:
-        steps = states[0].steps
-        sig = chain_signature(steps)
-        rids = tuple(s.rid for s in states)
+    def _tables(self, states: List, kv: KVManager) -> Tuple[torch.Tensor, ...]:
+        """One (B, n) page table per attention hop of the group's chain."""
         tables = []
-        for i, (block, _) in enumerate(steps):
+        for i, (block, _) in enumerate(states[0].steps):
             if block.has_kv:
                 _, pool = kv.pool_for(block)
                 tables.append(self._tensor(
                     pool.block_table([(s.rid, i) for s in states])))
+        return tuple(tables)
+
+    def _make_state(self, states: List, kv: KVManager) -> DecodeState:
+        steps = states[0].steps
+        sig = chain_signature(steps)
+        rids = tuple(s.rid for s in states)
         ds = DecodeState(
             rids=rids, sig=sig, states=list(states),
             next_token=self._tensor([s.next_token for s in states]),
             kv_len=self._tensor([s.kv_len for s in states]),
-            tables=tuple(tables),
+            tables=self._tables(states, kv),
             kv_len0=[s.kv_len for s in states],
             buffered_counts=[0] * len(states))
         self.decode_states[rids] = ds

@@ -51,6 +51,36 @@ def jax_demo_trees(seed: int = SEED):
     return as_np(params), as_np(ft), {"lora": [as_np(t) for t in lora]}
 
 
+def jax_fp32_json(script: str, trees, timeout: int = 600):
+    """Run ``script`` in a subprocess where the JAX package computes in
+    fp32 (it reads its compute dtype once, at import), with ``TREES`` bound
+    to ``trees`` (``jax_demo_trees()``'s value, handed over in a file so
+    the subprocess does not draw them again), and return the JSON value of
+    its last output line; the script can import this module's helpers
+    (``from test_torch_blocks import ...``)."""
+    import json
+    import os
+    import pickle
+    import subprocess
+    import sys
+    import tempfile
+    from pathlib import Path
+
+    root = Path(__file__).resolve().parents[1]
+    env = dict(os.environ, REPRO_COMPUTE_DTYPE="float32", JAX_PLATFORMS="cpu",
+               PYTHONPATH=os.pathsep.join([str(root / "src"),
+                                           str(root / "tests")]))
+    with tempfile.TemporaryDirectory() as tmp:
+        path = Path(tmp) / "trees.pkl"
+        path.write_bytes(pickle.dumps(trees))
+        head = f"import pickle\nTREES = pickle.loads(open({str(path)!r}, 'rb').read())\n"
+        proc = subprocess.run([sys.executable, "-c", head + script], env=env,
+                              capture_output=True, text=True,
+                              timeout=timeout)
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    return json.loads(proc.stdout.strip().splitlines()[-1])
+
+
 def jax_zoo(base, ft, pefts):
     from repro.configs import get_config
     from repro.core.zoo import BlockZoo

@@ -335,6 +335,10 @@ def test_preemption_token_exact_ref_route(zoo, strategy):
         assert engine.stats["prefill_attn_calls"] == before + n_attn
         recalc = [e for e in trace["events"] if e["name"] == "recalc"]
         assert [e["meta"]["tokens"] for e in recalc] == [13 + 2]  # + emitted
+        # the prompt is prefilled, the two emitted tokens replayed by the
+        # decode megastep (one walk each: n_attn paged calls)
+        assert [(e["meta"]["prefilled"], e["meta"]["replayed"])
+                for e in recalc] == [(13, 2)]
     else:
         assert engine.stats["spills"] == 1
         assert engine.stats["prefill_attn_calls"] == before

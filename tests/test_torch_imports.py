@@ -59,6 +59,42 @@ def test_no_jax_or_repro_imports(path):
                 f"{path.name}:{node.lineno} imports {name}"
 
 
+# names the port keeps beside the JAX package's, module by module
+PORTED_NAMES = {
+    "repro_torch.core.prng": ("PRNGKey", "split", "random_bits", "normal"),
+    "repro_torch.core.equivalence": ("vocab_probability_similarity",),
+    "repro_torch.core.peft": ("shared_param_fraction",),
+    "repro_torch.serving.request": ("Request", "generate_trace",
+                                    "as_serve_requests"),
+    "repro_torch.serving.cluster": ("Cluster", "Device", "paper_cluster"),
+    "repro_torch.serving.cost_model": (
+        "BlockCost", "kv_cache_bytes", "t_revisit_owner", "t_move_with_kv",
+        "t_recalc", "best_kv_strategy", "estimate_latency",
+        "preempt_readmit_strategy"),
+    "repro_torch.serving.simulator": ("build_serving_config",
+                                      "SchedulerConfig", "Simulation"),
+    "repro_torch.serving.engine": ("adaptive_serving_similarity",),
+    "repro_torch.launch.serve": ("run_sim", "run_real", "main"),
+    "repro_torch.examples.serve_multitenant": ("main",),
+}
+
+
+@pytest.mark.parametrize("module", sorted(PORTED_NAMES))
+def test_ported_module_has_its_names(module):
+    import importlib
+
+    mod = importlib.import_module(module)
+    for name in PORTED_NAMES[module]:
+        assert hasattr(mod, name), f"{module}.{name}"
+    assert module in _modules()  # so the import checks above cover it
+
+
+def test_zoo_has_equivalent_blocks():
+    from repro_torch.core.zoo import BlockZoo
+
+    assert callable(BlockZoo.equivalent_blocks)
+
+
 KERNEL_MODULES = ("paged_attention", "flash_attention", "batched_lora")
 
 

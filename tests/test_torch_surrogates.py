@@ -244,3 +244,37 @@ def test_surrogate_cache_eviction(zoos):
     # FFN-only by default: the serving path's surrogates keep the KV layout
     assert zoo.blocks[a].kv_signature == zoo.blocks[layer_ids[0]].kv_signature
     assert zoo.blocks[a].cfg.num_heads == zoo.blocks[layer_ids[0]].cfg.num_heads
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_aliased_weights_share_one_cast(zoos, dtype):
+    """A surrogate, a split attention/FFN block and their layer block read
+    the very same cast tensor for every weight they alias; a weight the
+    surrogate prunes (a new tensor) and a replaced one (a negated lm_head,
+    as chip_smoke forces rejection) get their own.  In fp32 the cast is
+    the tensor itself."""
+    import dataclasses
+
+    _, pz = zoos
+    layer = pz.blocks[pz.chains["base"].steps[1].block_id]
+    att_id, ffn_id = pz.split_layer_block(layer.id)
+    sur = build_surrogate(layer, 0.25, prune_kv=False)  # the engine's kind
+    p = layer.compute_params(dtype)
+    sp = sur.compute_params(dtype)
+    for k in ("wq", "wk", "wv", "wo"):
+        assert sur.params[k] is layer.params[k]
+        assert sp[k] is p[k] and pz.blocks[att_id].compute_params(dtype)[k] \
+            is p[k], k
+        assert p[k].dtype == dtype
+    for k in ("w_gate", "w_up", "w_down"):
+        assert pz.blocks[ffn_id].compute_params(dtype)[k] is p[k]
+        assert sp[k] is not p[k] and sp[k].shape != p[k].shape
+    assert (p["wq"] is layer.params["wq"]) == (dtype == torch.float32)
+    head = pz.blocks[pz.chains["base"].steps[-1].block_id]
+    neg = dataclasses.replace(
+        head, id=head.id + "-neg",
+        params=dict(head.params, lm_head=-head.params["lm_head"]),
+        _compute={}, _scaling={})
+    h, n = head.compute_params(dtype), neg.compute_params(dtype)
+    assert n["final_ln"] is h["final_ln"]
+    assert torch.equal(n["lm_head"], -h["lm_head"])
