@@ -65,7 +65,9 @@ script exits non-zero without printing a result:
    the ref path's top-2 logit margin is not clear (reported with the calls
    that computed the token in both runs and their group widths; the
    preempted request must be bitwise), every kernel's launches must
-   equal its executor counter and the paged launches the chain walks
+   equal its executor counter (flash: plus the gates' fidelity probe,
+   the surrogates' build inside the counted run) and the paged launches
+   the chain walks
    counted from the calls (2k - 1 per speculative call); with tokens/s,
    step wall, accept rate, each signature's probe fidelity and gate,
    peak memory and two profiled forced-accept steps;
@@ -77,11 +79,29 @@ script exits non-zero without printing a result:
    TinyLlama-1.1B width (its own demo zoo, speculation on, 12 requests)
    and its sim backend at 20 apps, each printing the launcher's JSON (the
    sim's times are modeled from H100 constants, not measured); every
-   kernel's launches equal the executor's calls in both real runs;
+   kernel's launches equal the engine's calls in both real runs (flash:
+   the executor's and the speculation gates' probe);
 7. parity on the card: the fused megastep against the per-hop path, token
    for token, and ``attn_impl="cuda"`` against ``attn_impl="ref"`` (the
    three kernels' plain versions), equal wherever the ref run's top-2
-   logit margin is clear.
+   logit margin is clear;
+8. the Model API of the dense family and the zoo's cross-size tools:
+   model_api -- ``build_model`` at TinyLlama-1.1B's full width and depth
+   (the zoo's base weights), 4 prompts of 64-512 tokens padded to 512 and
+   64 greedy decode steps, flash once per layer in prefill and paged once
+   per layer per step (the stacked cache's layer slice as one page of 576
+   tokens per sequence), held against ``attn_impl="ref"`` (teacher-forced:
+   probabilities within 2e-2, tokens equal at a clear margin) and against
+   a ``BlockEngine`` serving app base (flips only below a top-2 margin of
+   0.1), four decode steps under ``torch.profiler``, then
+   ``zoo.profile_block``;
+   model_api_int8 -- qwen1.5-32b's full width cut to 2 layers, its int8
+   cache on the reference's plain route (counted), flash in prefill;
+   cross_size -- qwen1.5-32b against qwen2-72b, full widths cut to 2
+   layers: ``cross_size_equivalence``, ``train_stitching_block`` (the
+   deepest loss under half the untrained stitch's), the stitched head
+   similarity above the untrained one's, ``add_stitch`` + ``apply_block``,
+   the peak memory.
 
 The line before the last two gives each kernel's launches on the main
 paths, its largest error against its plain version at their shapes, and
@@ -93,6 +113,7 @@ is ``{"ok": true, "device": {...}}``.  Without a CUDA device the script
 exits non-zero before printing anything.
 """
 import dataclasses
+import gc
 import json
 import subprocess
 import sys
@@ -110,9 +131,20 @@ from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.core import peft  # noqa: E402
 from repro_torch.core.peft import shared_param_fraction  # noqa: E402
 from repro_torch.core.blocks import (  # noqa: E402
+    apply_block,
     chain_prefill_fused,
     chain_signature,
+    tree_leaves,
 )
+from repro_torch.core.equivalence import cross_size_equivalence  # noqa: E402
+from repro_torch.core.stitching import (  # noqa: E402
+    _hidden_at_layer,
+    apply_stitch,
+    make_stitch_block,
+    stitched_head_similarity,
+    train_stitching_block,
+)
+from repro_torch.core.zoo import BlockZoo  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels.batched_lora import kernel as lora_kernel  # noqa: E402
 from repro_torch.kernels.batched_lora.ops import (  # noqa: E402
@@ -135,6 +167,9 @@ from repro_torch.kernels.paged_attention.ref import (  # noqa: E402
     paged_attention_ref,
 )
 from repro_torch.launch import serve as launcher  # noqa: E402
+from repro_torch.models import layers as L  # noqa: E402
+from repro_torch.models import transformer as T  # noqa: E402
+from repro_torch.models.model import build_model  # noqa: E402
 from repro_torch.serving.api import ServeRequest  # noqa: E402
 from repro_torch.serving.demo import build_demo_zoo  # noqa: E402
 from repro_torch.serving.engine import (  # noqa: E402
@@ -185,10 +220,13 @@ KERNELS = {
         lora_kernel, "src/repro_torch/kernels/batched_lora/csrc/"
         "batched_lora.cu", "src/repro/kernels/batched_lora/kernel.py:46"),
 }
-# executor counter each kernel's launches must equal on the main path
-KERNEL_COUNTERS = {"paged_attention": "attn_calls",
-                   "flash_attention": "prefill_attn_calls",
-                   "batched_lora": "lora_calls"}
+# engine counters whose sum each kernel's launches must equal on the main
+# path: the executor's calls, and for flash also the speculation gate's
+# fidelity probe (block and surrogate of each pruned attention hop)
+KERNEL_COUNTERS = {"paged_attention": ("attn_calls",),
+                   "flash_attention": ("prefill_attn_calls",
+                                       "probe_attn_calls"),
+                   "batched_lora": ("lora_calls",)}
 LONG_MAX, LONG_GEN, LONG_REQUESTS = 2048, 16, 8
 LONG_PROMPTS = (512, 2000)  # drawn from this range, plus one at its top
 DEVICE = "cuda"
@@ -211,14 +249,19 @@ def read_launches() -> dict:
     return {name: module.launches for name, (module, _, _) in KERNELS.items()}
 
 
+def engine_calls(stats) -> dict:
+    """The engine counters of ``KERNEL_COUNTERS``, read from ``stats``."""
+    return {c: stats[c] for cs in KERNEL_COUNTERS.values() for c in cs}
+
+
 def check_launches(launches: dict, stats, what: str, off_path=()) -> None:
-    """Each kernel launched exactly as often as the executor issued its
+    """Each kernel launched exactly as often as the engine issued its
     calls, and at least once unless it is ``off_path`` (then never)."""
-    for name, counter in KERNEL_COUNTERS.items():
-        if (stats[counter] == 0) != (name in off_path) \
-                or launches[name] != stats[counter]:
+    for name, counters in KERNEL_COUNTERS.items():
+        calls = sum(stats[c] for c in counters)
+        if (calls == 0) != (name in off_path) or launches[name] != calls:
             raise RuntimeError(f"{what}: {name} launches {launches[name]} != "
-                               f"executor {counter} {stats[counter]}")
+                               f"engine {counters} {calls}")
 
 
 def nvidia_smi() -> str:
@@ -352,7 +395,7 @@ def time_ms(fn, iters: int, flush: torch.Tensor) -> float:
     return total / iters
 
 
-def bound(q, seq_lens, KVH, dtype, fused=False):
+def bound(q, seq_lens, KVH, dtype, fused=False, page=PAGE):
     """Least time for this call: bytes each input read once and the output
     written once (K/V only for the valid tokens, table entries only for the
     pages those tokens use) over HBM bandwidth, against 4*len*Hq*hd flops
@@ -364,7 +407,7 @@ def bound(q, seq_lens, KVH, dtype, fused=False):
     total = int(sum(seq_lens))
     nbytes = (2 * q.numel() * item                    # q in, out
               + 2 * total * KVH * hd * item            # K and V
-              + 4 * sum(-(-n // PAGE) for n in seq_lens)  # table entries
+              + 4 * sum(-(-n // page) for n in seq_lens)  # table entries
               + 4 * B)                                 # seq_lens / kv_len
     if fused:
         nbytes += 2 * B * KVH * hd * item              # the new rows, stored
@@ -906,7 +949,7 @@ def engine_phase(cfg, zoo, smi):
            "host_syncs": stats["host_syncs"], "steps": stats["steps"],
            "repeats": repeats,
            "launches": launches,
-           "executor_calls": {c: stats[c] for c in KERNEL_COUNTERS.values()},
+           "engine_calls": engine_calls(stats),
            "max_memory_allocated_bytes": torch.cuda.max_memory_allocated(),
            "card": smi}
     emit(row)
@@ -1098,7 +1141,7 @@ def long_prefill_phase(cfg, zoo, smi):
                       "flash_launches": readmit_flash},
            "bitwise_equal": True,
            "launches": launches,
-           "executor_calls": {c: stats[c] for c in KERNEL_COUNTERS.values()},
+           "engine_calls": engine_calls(stats),
            "card": smi}
     emit(row)
     return launches, row
@@ -1230,7 +1273,7 @@ def spec_row(name, eng, results, wall, log, launches, peak):
             / max(stats["spec_attempts"], 1),
             "plain_calls": log["plain"], "spec_calls": log["spec"],
             "launches": launches,
-            "executor_calls": {c: stats[c] for c in KERNEL_COUNTERS.values()},
+            "engine_calls": engine_calls(stats),
             "max_memory_allocated_bytes": peak}
 
 
@@ -1253,9 +1296,9 @@ def spec_preempt_run(cfg, zoo, reqs, want, off_log, strategy):
     holds speculative commits not yet synced, readmitted by ``strategy``;
     ``want``/``off_log`` are spec-OFF's run of the same requests."""
     eng = spec_engine(zoo, speculation=True, spec_prune_ratio=0.0)
-    spec_gates(eng)  # surrogates built before the counts are zeroed
+    reset_launches()  # the gates' probes launch flash: counted too
+    spec_gates(eng)
     log = log_calls(eng)
-    reset_launches()
     rids = [eng.submit(ServeRequest(app=r.app, gen_len=r.gen_len,
                                     prompt_tokens=r.prompt_tokens))
             for r in reqs]
@@ -1316,9 +1359,10 @@ def speculation_phase(cfg, zoo, smi):
     accept-rate gate turns each signature off); then spill and recalc
     preemption in the middle of forced-accept speculation.  Every run's
     tokens must equal spec-OFF's (a flip only where the ref margin is not
-    clear, reported), every kernel's launches its executor counter, and
-    attn_calls the walks counted from the calls; surrogates are built (and
-    timed) before a run's counts are zeroed."""
+    clear, reported), every kernel's launches its executor counter (flash
+    plus the gates' fidelity probe), and attn_calls the walks counted from
+    the calls; a run's counts are zeroed before its surrogates are built
+    (and timed), so the probe's flash launches are counted."""
     reqs = traffic(cfg)
     n_attn = cfg.num_layers
     # The zoo's default cache of 32 surrogates is smaller than this zoo's
@@ -1342,6 +1386,7 @@ def speculation_phase(cfg, zoo, smi):
     build_s = {}
     for name, kw in runs.items():
         eng = spec_engine(zoo, **kw)
+        reset_launches()  # the gates' probes launch flash: counted too
         t0 = time.perf_counter()
         if eng.config.speculation:
             gates[name] = spec_gates(eng)
@@ -1351,7 +1396,6 @@ def speculation_phase(cfg, zoo, smi):
         build_s[name] = time.perf_counter() - t0
         log = logs[name] = log_calls(eng)
         torch.cuda.reset_peak_memory_stats()
-        reset_launches()
         t0 = time.perf_counter()
         out = results[name] = serve(eng, reqs)
         wall = time.perf_counter() - t0
@@ -1490,7 +1534,7 @@ def adaptive_phase(cfg, zoo, smi):
            "shared_param_fraction_app_lora":
            shared_param_fraction(base, adapters),
            "wall_s": wall, "launches": launches,
-           "executor_calls": {c: stats[c] for c in KERNEL_COUNTERS.values()},
+           "engine_calls": engine_calls(stats),
            "card": smi}
     emit(row)
     return launches, row
@@ -1596,6 +1640,489 @@ def cuda_vs_ref(zoo, reqs, cuda_results):
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 8: the Model API (dense family), its cross-size tools
+# ---------------------------------------------------------------------------
+
+# model_api: TinyLlama-1.1B at full width and depth, 4 prompts of 64-512
+# tokens padded to 512, a cache of 576, 64 greedy decode steps
+API_B, API_S, API_MAX, API_GEN, API_SEED = 4, 512, 576, 64, 11
+API_PROMPTS = (64, 512)
+API_MARGIN = 0.1  # top-2 gap below which the Model API and engine may flip
+# a whole bf16 chain's logits against the ref route's, in per-hop bounds:
+# sound runs drift by a bf16 ulp or two, flat across the steps (1.57 at
+# TinyLlama's 22 layers, 0.53 at 2 layers), where a fault in the cache, the
+# positions or a kernel moves logits by whole units
+API_CHAIN_BOUND = 3.0
+API_PROFILE_STEPS = 4
+# model_api_int8 and cross_size: full widths, depth cut to 2 layers
+INT8_MODEL, CROSS_B_MODEL, CUT_LAYERS = "qwen1.5-32b", "qwen2-72b", 2
+INT8_B, INT8_S, INT8_GEN = 2, 256, 16
+CROSS_B, CROSS_S, CROSS_POINTS = 4, 128, ((1, 1), (2, 2))
+
+
+def reset_routes() -> None:
+    for k in T.DECODE_ROUTES:
+        T.DECODE_ROUTES[k] = 0
+
+
+def settle() -> int:
+    """Free what earlier phases left for the cyclic collector (engines and
+    their executors refer to each other, and hold KV pools and zoos), so a
+    phase's peak memory is its own and the resident set's.  Returns the
+    bytes still allocated."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    return torch.cuda.memory_allocated()
+
+
+def api_prompts(cfg, B, S, lens, seed):
+    """(tokens (B, S) right-padded with 0, prompt lengths (B,)) from a
+    numpy seed, on the card."""
+    rng = np.random.RandomState(seed)
+    n = rng.randint(lens[0], lens[1] + 1, size=B).astype(np.int32)
+    tok = rng.randint(0, cfg.vocab_size, size=(B, S)).astype(np.int32)
+    tok[np.arange(S)[None, :] >= n[:, None]] = 0
+    return (torch.from_numpy(tok).to(DEVICE),
+            torch.from_numpy(n).to(DEVICE))
+
+
+def api_run(model, params, tokens, lens, max_len, steps, attn_impl,
+            forced=None):
+    """Prefill, then ``steps`` decode steps through the Model API; greedy,
+    or teacher-forced on ``forced`` (B, steps + 1).  Returns (tokens
+    (B, steps + 1), fp32 logits (steps + 1, B, V), prefill s, step s)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits, cache, _ = model.prefill(
+        params, {"tokens": tokens, "prompt_lens": lens}, max_len=max_len,
+        attn_impl=attn_impl)
+    nxt = logits.argmax(-1) if forced is None else forced[:, 0]
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    toks, out, step_s = [nxt], [logits.float()], []
+    for j in range(steps):
+        t1 = time.perf_counter()
+        logits, cache = model.decode_step(
+            params, cache, {"tokens": nxt[:, None].to(torch.int32),
+                            "kv_len": lens + j}, attn_impl=attn_impl)
+        nxt = logits.argmax(-1) if forced is None else forced[:, j + 1]
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t1)
+        toks.append(nxt)
+        out.append(logits.float())
+    del cache
+    return torch.stack(toks, 1), torch.stack(out), prefill_s, step_s
+
+
+def top2_margin(logits):
+    top2 = logits.topk(2, dim=-1).values
+    return top2[..., 0] - top2[..., 1]
+
+
+def hold_logits(got, want, what):
+    """A whole bf16 chain against the same chain on the kernels' plain
+    versions, teacher-forced on the same tokens: every logit within
+    ``API_CHAIN_BOUND`` times the per-hop bound (2e-2 + 2e-2 |x| + one
+    bf16 ulp at the row's largest |logit|), and greedy tokens equal where
+    ``want``'s top-2 gap exceeds 0.1 (each kernel is held elementwise at
+    these shapes in the kernels phase).  Returns the logits' largest error
+    per step, their worst ratio to the per-hop bound and the tokens
+    compared."""
+    mag = want.abs().amax(dim=-1, keepdim=True)
+    _, e = torch.frexp(mag)
+    bound = 2e-2 + 2e-2 * want.abs() + torch.ldexp(torch.ones_like(mag),
+                                                   e - 8)
+    err = (got - want).abs()
+    worst = float((err / bound).max())
+    clear = top2_margin(want) > API_MARGIN
+    flips = int((got.argmax(-1) != want.argmax(-1))[clear].sum())
+    if not worst <= API_CHAIN_BOUND or flips:
+        raise RuntimeError(f"{what}: kernel route against ref: logits at "
+                           f"{worst} x the per-hop bound (at most "
+                           f"{API_CHAIN_BOUND}), {flips} token flips at a "
+                           "clear margin")
+    return {"logits_max_abs_err_per_step":
+            err.amax(dim=(1, 2)).tolist(),
+            "logits_worst_err_over_hop_bound": worst,
+            "tokens_compared_at_clear_margin": int(clear.sum())}
+
+
+def model_api_phase(cfg, zoo, smi):
+    """``build_model(cfg)`` at TinyLlama-1.1B's full width and depth on the
+    card, random weights from seed 0 (the demo zoo's base app's own):
+    prefill B = 4 padded prompts, then 64 greedy decode steps; flash
+    launches 22 per prefill, paged 22 per step (the cache's layer slice as
+    one page per sequence), LoRA none.  Then the kernel route against
+    ``attn_impl="ref"`` (teacher-forced on the same tokens), the Model
+    API's stream against a ``BlockEngine`` serving app ``base`` on the
+    same weights, and ``zoo.profile_block`` on one layer block."""
+    resident = settle()
+    model = build_model(cfg)
+    params = model.init(torch.Generator(DEVICE).manual_seed(0))
+    base = [zoo.blocks[s.block_id] for s in zoo.chains["base"].steps]
+    if not (torch.equal(params["embed"], base[0].params["embed"])
+            and torch.equal(params["layers"]["wq"][0],
+                            base[1].params["wq"])):
+        raise RuntimeError("model_api: weights differ from the zoo's base")
+    tokens, lens = api_prompts(cfg, API_B, API_S, API_PROMPTS, API_SEED)
+    # warm-up: the weights' bf16 casts, the allocator, cuBLAS
+    api_run(model, params, tokens, lens, API_MAX, 2, "auto")
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    reset_routes()
+    got_tok, got, prefill_s, step_s = api_run(model, params, tokens, lens,
+                                              API_MAX, API_GEN, "auto")
+    launches = read_launches()
+    routes = dict(T.DECODE_ROUTES)
+    peak = torch.cuda.max_memory_allocated()
+    L_ = cfg.num_layers
+    want_launches = {"paged_attention": L_ * API_GEN, "flash_attention": L_,
+                     "batched_lora": 0}
+    if launches != want_launches or routes["paged"] != L_ * API_GEN \
+            or sum(routes.values()) != L_ * API_GEN:
+        raise RuntimeError(f"model_api: launches {launches}, routes {routes};"
+                           f" want {want_launches}")
+    if not torch.isfinite(got).all() or got.shape != (
+            API_GEN + 1, API_B, cfg.vocab_size):
+        raise RuntimeError(f"model_api: logits {tuple(got.shape)} not finite")
+    _, want, _, _ = api_run(model, params, tokens, lens, API_MAX, API_GEN,
+                            "ref", forced=got_tok)
+    vs_ref = hold_logits(got, want, "model_api")
+    # the engine on the same weights, app base, the unpadded prompts
+    eng = BlockEngine(zoo, max_len=API_MAX, config=EngineConfig(
+        max_active=16, max_block_batch=16, page_size=PAGE, device=DEVICE))
+    host_tok, host_lens = tokens.cpu().numpy(), lens.cpu().numpy()
+    served = serve(eng, [ServeRequest(app="base", gen_len=API_GEN,
+                                      prompt_tokens=host_tok[b, :n])
+                         for b, n in enumerate(host_lens)])
+    api_tok = got_tok[:, :API_GEN].cpu().numpy()
+    margins = top2_margin(want).cpu().numpy()  # (steps + 1, B)
+    equal, flips = 0, []
+    for b, r in enumerate(served):
+        diff = np.nonzero(r.tokens != api_tok[b])[0]
+        j = int(diff[0]) if len(diff) else API_GEN
+        equal += j
+        if len(diff):
+            flips.append({"request": b, "at": j,
+                          "ref_margin": float(margins[j, b])})
+    if any(f["ref_margin"] >= API_MARGIN for f in flips):
+        raise RuntimeError(f"model_api: Model API and engine flip at a "
+                           f"clear margin: {flips}")
+    del eng, served
+    # four steady decode steps under torch.profiler: device time and
+    # launches a step, against the unprofiled run's step wall
+    _, cache, _ = model.prefill(params, {"tokens": tokens,
+                                         "prompt_lens": lens},
+                                max_len=API_MAX)
+    nxt = got_tok[:, 0]
+
+    def steps():
+        return [model.decode_step(params, cache, {
+            "tokens": nxt[:, None].to(torch.int32), "kv_len": lens + j})[0]
+            for j in range(API_PROFILE_STEPS)]
+
+    by_kernel, n = profiled(steps)
+    del cache
+    device_s = sum(us for us, _, _ in by_kernel) / 1e6 / n
+    step_p50 = float(np.percentile(step_s, 50))
+    # the block profiler on the base's first layer block
+    prof = zoo.profile_block(base[1].id, batch_sizes=(1, 8, 32), seq_len=64)
+    prompt_tokens = int(lens.sum())
+    decode_s = sum(step_s)
+    row = {"phase": "model_api", "model": cfg.name,
+           "layers": cfg.num_layers, "d_model": cfg.d_model,
+           "heads": [cfg.num_heads, cfg.num_kv_heads,
+                     cfg.resolved_head_dim], "d_ff": cfg.d_ff,
+           "vocab": cfg.vocab_size, "batch": API_B, "padded_S": API_S,
+           "max_len": API_MAX, "prompt_lens": host_lens.tolist(),
+           "decode_steps": API_GEN, "launches": launches, "routes": routes,
+           "prefill_s": prefill_s,
+           "prefill_tok_per_s": prompt_tokens / prefill_s,
+           "decode_tok_per_s": API_B * API_GEN / decode_s,
+           "decode_step_wall_p50_s": step_p50,
+           "decode_step_wall_p95_s": float(np.percentile(step_s, 95)),
+           "decode_profile": {
+               "steps": n, "device_ms_per_step": device_s * 1e3,
+               "device_busy_share": device_s / step_p50,
+               "kernel_launches_per_step":
+               sum(c for _, c, _ in by_kernel) / n,
+               "paged_ms_per_step": sum(
+                   us for us, _, k in by_kernel if "paged_attention" in k)
+               / 1e3 / n},
+           "max_memory_allocated_bytes": peak,
+           "resident_bytes_at_start": resident,
+           "vs_ref": vs_ref,
+           "vs_engine": {"tokens_equal": equal,
+                         "tokens_compared": API_B * API_GEN,
+                         "flips": flips, "allowed_below": API_MARGIN},
+           "profile_block": {"block": base[1].id, "seq_len": 64,
+                             "bytes": prof.bytes,
+                             "us_per_token": {
+                                 bs: t * 1e6 for bs, t in
+                                 prof.compute_time_per_token.items()}},
+           "card": smi}
+    emit(row)
+    del params
+    return launches, row
+
+
+def cut_config(name):
+    """A config at its published widths with its depth cut to
+    ``CUT_LAYERS``."""
+    return get_config(name).replace(num_layers=CUT_LAYERS)
+
+
+def init_params(cfg, seed):
+    """Random weights from ``seed`` on the card, the qkv biases drawn too
+    (the init's are zero)."""
+    params = build_model(cfg).init(torch.Generator(DEVICE).manual_seed(seed))
+    if cfg.qkv_bias:
+        g = torch.Generator(DEVICE).manual_seed(seed + 1000)
+        for name in ("bq", "bk", "bv"):
+            params["layers"][name].normal_(0.0, 0.1, generator=g)
+    return params
+
+
+def model_api_int8_phase(smi):
+    """qwen1.5-32b's full width (d 5120, 40 MHA heads, hd 128, qkv bias,
+    int8 KV), depth cut to 2: prefill B = 2 x 256 through flash, then 16
+    greedy decode steps on the int8 route the config picks (the reference's
+    plain dequantize-and-attend: no paged launch), held against the ref
+    route.  Returns (launches, row, cfg, params) for cross_size."""
+    resident = settle()
+    cfg = cut_config(INT8_MODEL)
+    model = build_model(cfg)
+    params = init_params(cfg, 0)
+    tokens, lens = api_prompts(cfg, INT8_B, INT8_S, (INT8_S, INT8_S), 12)
+    api_run(model, params, tokens, lens, INT8_S + INT8_GEN, 1, "auto")
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    reset_routes()
+    got_tok, got, prefill_s, step_s = api_run(
+        model, params, tokens, lens, INT8_S + INT8_GEN, INT8_GEN, "auto")
+    launches = read_launches()
+    routes = dict(T.DECODE_ROUTES)
+    peak = torch.cuda.max_memory_allocated()
+    want_launches = {"paged_attention": 0, "flash_attention": CUT_LAYERS,
+                     "batched_lora": 0}
+    if launches != want_launches or routes["int8"] != CUT_LAYERS * INT8_GEN \
+            or sum(routes.values()) != CUT_LAYERS * INT8_GEN:
+        raise RuntimeError(f"model_api_int8: launches {launches}, routes "
+                           f"{routes}; want {want_launches}")
+    if not torch.isfinite(got).all():
+        raise RuntimeError("model_api_int8: logits not finite")
+    _, want, _, _ = api_run(model, params, tokens, lens, INT8_S + INT8_GEN,
+                            INT8_GEN, "ref", forced=got_tok)
+    vs_ref = hold_logits(got, want, "model_api_int8")
+    row = {"phase": "model_api_int8", "model": cfg.name,
+           "layers": cfg.num_layers,
+           "cut": f"depth {get_config(INT8_MODEL).num_layers} -> "
+           f"{CUT_LAYERS} layers", "d_model": cfg.d_model,
+           "heads": [cfg.num_heads, cfg.num_kv_heads,
+                     cfg.resolved_head_dim], "d_ff": cfg.d_ff,
+           "vocab": cfg.vocab_size, "kv_cache_dtype": cfg.kv_cache_dtype,
+           "qkv_bias": cfg.qkv_bias, "batch": INT8_B, "S": INT8_S,
+           "decode_steps": INT8_GEN, "launches": launches, "routes": routes,
+           "prefill_s": prefill_s,
+           "prefill_tok_per_s": INT8_B * INT8_S / prefill_s,
+           "decode_tok_per_s": INT8_B * INT8_GEN / sum(step_s),
+           "decode_step_wall_p50_s": float(np.percentile(step_s, 50)),
+           "max_memory_allocated_bytes": peak,
+           "resident_bytes_at_start": resident,
+           "vs_ref": vs_ref,
+           "card": smi}
+    emit(row)
+    return launches, row, cfg, params
+
+
+def stitch_mse(w, h_a, h_b, pos_value):
+    return float(torch.mean(torch.square(
+        apply_stitch(w, h_a, pos_value).float() - h_b.float())))
+
+
+def cross_size_phase(cfg_a, params_a, smi):
+    """qwen1.5-32b (A, d 5120) against qwen2-72b (B, d 8192, 64/8 heads),
+    full widths, the same 152,064 vocab, depth cut to 2 each, 4 x 128
+    tokens: ``cross_size_equivalence`` at half depth; a stitch trained over
+    points (1, 1) then (2, 2) at 120 steps a point, whose loss at the
+    deepest point must be under half its untrained start's and whose
+    stitched head similarity must beat the untrained one's; then
+    ``add_stitch`` + ``apply_block``.  Every layer's attention is a flash
+    launch."""
+    resident = settle()
+    cfg_b = cut_config(CROSS_B_MODEL)
+    torch.cuda.reset_peak_memory_stats()
+    params_b = init_params(cfg_b, 1)
+    ma, mb = build_model(cfg_a), build_model(cfg_b)
+    tokens = torch.from_numpy(np.random.RandomState(13).randint(
+        0, cfg_a.vocab_size, size=(CROSS_B, CROSS_S)).astype(np.int32)).to(
+            DEVICE)
+    w0 = L.dense_init(torch.Generator(DEVICE).manual_seed(14),
+                      (cfg_a.d_model + 1, cfg_b.d_model))
+    # warm-up: casts and kernels of both models
+    cross_size_equivalence(ma, params_a, cfg_a, mb, params_b, cfg_b, tokens)
+    reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    eq = cross_size_equivalence(ma, params_a, cfg_a, mb, params_b, cfg_b,
+                                tokens, frac=0.5)
+    torch.cuda.synchronize()
+    eq_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    w, losses = train_stitching_block(params_a, cfg_a, params_b, cfg_b,
+                                      list(CROSS_POINTS), tokens, w_init=w0)
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    deep = CROSS_POINTS[-1]
+    sim = stitched_head_similarity(params_a, cfg_a, params_b, cfg_b, w, deep,
+                                   tokens)
+    sim0 = stitched_head_similarity(params_a, cfg_a, params_b, cfg_b, w0,
+                                    deep, tokens)
+    launches = read_launches()
+    with torch.no_grad():
+        h_a = _hidden_at_layer(params_a, cfg_a, tokens, deep[0])
+        h_b = _hidden_at_layer(params_b, cfg_b, tokens, deep[1])
+    mse, mse0 = (stitch_mse(x, h_a, h_b, float(sum(deep))) for x in (w, w0))
+    zoo = BlockZoo()
+    blk = make_stitch_block(w, cfg_a.name, cfg_b.name, cfg_a.d_model,
+                            cfg_b.d_model, float(sum(deep)))
+    zoo.add_stitch(blk)
+    with torch.no_grad():
+        out = apply_block(zoo.blocks[zoo.stitches[(cfg_a.d_model,
+                                                   cfg_b.d_model)]], h_a)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    # flash launches: half depth of each model (1 + 1), the training's
+    # hidden states per point (1 + 1, then 2 + 2), and each similarity's
+    # A prefix, B's tail after the stitch and B's own pass (2 + 0 + 2)
+    want_flash = 2 + sum(a + b for a, b in CROSS_POINTS) + 2 * (
+        deep[0] + (cfg_b.num_layers - deep[1]) + cfg_b.num_layers)
+    want_launches = {"paged_attention": 0, "flash_attention": want_flash,
+                     "batched_lora": 0}
+    if launches != want_launches:
+        raise RuntimeError(f"cross_size: launches {launches}, want "
+                           f"{want_launches}")
+    if not (0.0 <= eq <= 1.0) or not mse < 0.5 * mse0 or not sim > sim0 \
+            or out.shape != (CROSS_B, CROSS_S, cfg_b.d_model) \
+            or not torch.isfinite(out.float()).all():
+        raise RuntimeError(f"cross_size: equivalence {eq}, stitch loss "
+                           f"{mse} against untrained {mse0}, similarity "
+                           f"{sim} against untrained {sim0}, stitch output "
+                           f"{tuple(out.shape)}")
+    n_params = {c.name: sum(t.numel() for t in tree_leaves(p))
+                for c, p in ((cfg_a, params_a), (cfg_b, params_b))}
+    row = {"phase": "cross_size", "a": cfg_a.name, "b": cfg_b.name,
+           "cut": f"depth {get_config(INT8_MODEL).num_layers} -> "
+           f"{CUT_LAYERS} (A), {get_config(CROSS_B_MODEL).num_layers} -> "
+           f"{CUT_LAYERS} (B) layers",
+           "d_model": [cfg_a.d_model, cfg_b.d_model],
+           "heads_b": [cfg_b.num_heads, cfg_b.num_kv_heads,
+                       cfg_b.resolved_head_dim], "d_ff_b": cfg_b.d_ff,
+           "params": n_params, "tokens": [CROSS_B, CROSS_S],
+           "cross_size_equivalence": eq, "equivalence_s": eq_s,
+           "stitch_points": [list(p) for p in CROSS_POINTS],
+           "steps_per_point": 120, "losses": losses, "train_s": train_s,
+           "deepest_loss": mse, "untrained_loss": mse0,
+           "stitched_head_similarity": sim, "untrained_similarity": sim0,
+           "stitch_block": blk.id, "launches": launches,
+           "max_memory_allocated_bytes": peak,
+           "resident_bytes_at_start": resident, "card": smi}
+    emit(row)
+    return launches, row
+
+
+def one_page_case(name, B, Hq, KVH, hd, S, lens, flush):
+    """Paged attention as the Model API's decode launches it: a stacked
+    cache's layer slice (B, S, KVH, hd) as B pages of S tokens, table
+    arange(B).  The fused step against ``write_token_to_pages`` + the plain
+    version (pages bitwise) and attend only against the plain version, bf16
+    and fp32, timed beside SDPA on the same cache."""
+    rows = []
+    for dtype in (torch.bfloat16, torch.float32):
+        g = torch.Generator(DEVICE).manual_seed(len(rows) + 21)
+        q, k_new, v_new = (torch.randn(*shp, generator=g, device=DEVICE)
+                           .to(dtype) for shp in ((B, Hq, hd), (B, KVH, hd),
+                                                  (B, KVH, hd)))
+        k, v = (torch.randn(B, S, KVH, hd, generator=g, device=DEVICE)
+                .to(dtype) for _ in range(2))
+        tables = torch.arange(B, dtype=torch.int32, device=DEVICE)[:, None]
+        seq = torch.tensor(lens, dtype=torch.int32, device=DEVICE)
+        kv_len = seq - 1
+        got = paged_attention(q, k, v, tables, seq, impl="cuda")
+        kf, vf = k.clone(), v.clone()
+        fused = paged_decode_step(q, k_new, v_new, kf, vf, tables, kv_len,
+                                  impl="cuda")[0]
+        torch.cuda.synchronize()
+        want = paged_attention_ref(q, k, v, tables, seq)
+        kr, vr = write_token_to_pages(k.clone(), v.clone(), tables, kv_len,
+                                      k_new, v_new)
+        want_f = paged_attention_ref(q, kr, vr, tables, seq)
+        if not (torch.equal(kf, kr) and torch.equal(vf, vr)):
+            raise RuntimeError(f"paged {name}: the fused step's pages differ "
+                               "from write_token_to_pages'")
+        tol = TOL[dtype]
+        for a, b_ in ((got, want), (fused, want_f)):
+            torch.testing.assert_close(a.float(), b_.float(), rtol=tol,
+                                       atol=tol)
+            check_bf16_ulp(a, b_, f"paged {name}")
+        err = float((got.float() - want.float()).abs().max())
+        f_err = float((fused.float() - want_f.float()).abs().max())
+        k_ms = time_ms(lambda: paged_attention(q, k, v, tables, seq,
+                                               impl="cuda"), 50, flush)
+        f_ms = time_ms(lambda: paged_decode_step(
+            q, k_new, v_new, kf, vf, tables, kv_len, impl="cuda"), 50, flush)
+        r_ms = time_ms(lambda: paged_attention_ref(q, k, v, tables, seq), 50,
+                       flush)
+        s_ms = time_ms(lambda: paged_decode_step(
+            q, k_new, v_new, kf, vf, tables, kv_len, impl="ref"), 50, flush)
+        lib = sdpa_yardstick(q, k, v, tables, seq)
+        l_ms = time_ms(lib, 50, flush)
+        b_ms, b_by = bound(q, lens, KVH, dtype, page=S)
+        fb_ms, fb_by = bound(q, lens, KVH, dtype, fused=True, page=S)
+        row = {"phase": "kernels", "kernel": "paged_attention", "case": name,
+               "dtype": str(dtype), "B": B, "Hq": Hq, "KVH": KVH, "hd": hd,
+               "page": S, "pages_per_seq": 1, "num_pages": B,
+               "split_tokens": pa_kernel.SPLIT_TOKENS,
+               "splits": pa_kernel.num_splits(1, S),
+               "seq_len_sum": int(sum(lens)), "seq_len_max": int(max(lens)),
+               "tol": tol, "max_abs_err": max(err, f_err),
+               "attend_max_abs_err": err, "fused_max_abs_err": f_err,
+               "pages_bitwise_equal": True, "kernel_ms": k_ms,
+               "fused_ms": f_ms, "ref_ms": r_ms, "plain_step_ms": s_ms,
+               "library_ms": l_ms, "bound_ms": b_ms, "bound_by": b_by,
+               "fused_bound_ms": fb_ms, "fused_bound_by": fb_by}
+        emit(row)
+        rows.append(row)
+    return rows
+
+
+def api_cases(cfg):
+    """Flash and paged cases at the shapes the Model API phases give the
+    kernels: model_api's prefill (B, 512) and its decode at the prompts
+    plus half the generation in a cache of 576; model_api_int8's prefill;
+    cross_size's two models' prefills of 4 x 128."""
+    a, b = cut_config(INT8_MODEL), cut_config(CROSS_B_MODEL)
+
+    def heads(c):
+        return c.num_heads, c.num_kv_heads
+
+    H, KVH, hd = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
+    flash = {
+        f"main_model_api_B{API_B}_S{API_S}": (API_B, H, KVH, API_S, hd, True),
+        f"main_int8_B{INT8_B}_S{INT8_S}": (INT8_B, *heads(a), INT8_S,
+                                           a.resolved_head_dim, True),
+        f"main_cross_a_B{CROSS_B}_S{CROSS_S}": (CROSS_B, *heads(a), CROSS_S,
+                                                a.resolved_head_dim, True),
+        f"main_cross_b_B{CROSS_B}_S{CROSS_S}": (CROSS_B, *heads(b), CROSS_S,
+                                                b.resolved_head_dim, True),
+    }
+    _, lens = api_prompts(cfg, API_B, API_S, API_PROMPTS, API_SEED)
+    paged = (API_B, H, KVH, hd, API_MAX,
+             [int(n) + API_GEN // 2 for n in lens.cpu().numpy()])
+    return flash, {f"main_model_api_page{API_MAX}": paged}
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device; this script runs only "
@@ -1648,9 +2175,13 @@ def main():
         "ragged_t": (1000, D, G_kv * hd, 1, r, LORA_BT),
         **main_lora,
     }
+    api_flash, api_paged = api_cases(cfg)
+    flash_cases.update(api_flash)
     flush = torch.empty(64 << 20, dtype=torch.uint8, device=DEVICE)
     t0 = time.perf_counter()
     rows = kernel_phase(paged_cases, flush)
+    for name, case in api_paged.items():
+        rows += one_page_case(name, *case, flush)
     paged_split_sweep({c: paged_cases[c] for c in ("main_path", "long")},
                       flush)
     rows += flash_phase(flash_cases, flush)
@@ -1701,12 +2232,24 @@ def main():
     fused_vs_per_hop(cfg, zoo)
     cuda_vs_ref(zoo, reqs, results)
     phase_s["parity"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    api_launches, api = model_api_phase(cfg, zoo, smi)
+    phase_s["model_api"] = time.perf_counter() - t0
+    del zoo  # the engine phases' zoo: the cross-size models need the room
+    t0 = time.perf_counter()
+    int8_launches, int8, cfg_a, params_a = model_api_int8_phase(smi)
+    phase_s["model_api_int8"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    cross_launches, cross = cross_size_phase(cfg_a, params_a, smi)
+    del params_a
+    phase_s["cross_size"] = time.perf_counter() - t0
 
     # each main-path run: counts set to 0 just before, read just after
     by_path = {"engine": eng_launches, **{
         f"long_prefill_{k}": v for k, v in long_launches.items()},
         **spec_launches, "adaptive": adaptive_launches,
-        "launch": launch_launches}
+        "launch": launch_launches, "model_api": api_launches,
+        "model_api_int8": int8_launches, "cross_size": cross_launches}
     # the shape each kernel's ms stands for: paged attention's decode
     # batch; flash's costliest prefill call (the long path's largest
     # group); LoRA's decode q projection at the engine's app-lora batch,
@@ -1752,7 +2295,10 @@ def main():
           "long_prefill_tok_per_s": long_row["prefill_tok_per_s"],
           "speculation_tok_per_s": {r["run"]: r["tok_per_s"]
                                     for r in spec["runs"]},
-          "launch_tok_per_s": launch["real"]["tokens_per_s"]})
+          "launch_tok_per_s": launch["real"]["tokens_per_s"],
+          "model_api_decode_tok_per_s": api["decode_tok_per_s"],
+          "model_api_int8_decode_tok_per_s": int8["decode_tok_per_s"],
+          "cross_size_peak_bytes": cross["max_memory_allocated_bytes"]})
     emit({"kernels": line})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

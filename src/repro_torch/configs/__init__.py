@@ -1,1 +1,9 @@
-from repro_torch.configs.base import ModelConfig, get_config  # noqa: F401
+from repro_torch.configs.base import (  # noqa: F401
+    SHAPES,
+    ModelConfig,
+    ShapeConfig,
+    applicable_shapes,
+    get_config,
+    get_reduced_config,
+    list_configs,
+)

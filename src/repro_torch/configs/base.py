@@ -1,14 +1,39 @@
-"""Model architecture configs — a copy of ``repro.configs.base`` kept inside
-the PyTorch port (the port imports nothing of ``repro``).
+"""Config system — a copy of ``repro.configs.base`` kept inside the PyTorch
+port (the port imports nothing of ``repro``): model architecture configs
+and the assigned input shapes.
 
-Only the fields and the registry are copied; the JAX package's shape table
-and parameter counting (which builds a JAX model) are not part of the port.
+Every architecture gets a ``ModelConfig`` in ``repro_torch/configs/<id>.py``
+with the published numbers and a reduced CPU-test-sized variant of the
+same family.  Parameters are counted by building the port's init on the
+``meta`` device, which allocates nothing; a family the port cannot build
+yet raises ``NotImplementedError``.
 """
 from __future__ import annotations
 
 import dataclasses
+import math
 from dataclasses import dataclass
 from typing import Tuple
+
+# ---------------------------------------------------------------------------
+# Input shapes (assigned; identical set for every LM-family arch).
+# ---------------------------------------------------------------------------
+
+
+@dataclass(frozen=True)
+class ShapeConfig:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str  # "train" | "prefill" | "decode"
+
+
+SHAPES = {
+    "train_4k": ShapeConfig("train_4k", 4_096, 256, "train"),
+    "prefill_32k": ShapeConfig("prefill_32k", 32_768, 32, "prefill"),
+    "decode_32k": ShapeConfig("decode_32k", 32_768, 128, "decode"),
+    "long_500k": ShapeConfig("long_500k", 524_288, 1, "decode"),
+}
 
 
 @dataclass(frozen=True)
@@ -75,6 +100,32 @@ class ModelConfig:
     def replace(self, **kw) -> "ModelConfig":
         return dataclasses.replace(self, **kw)
 
+    def param_count(self) -> int:
+        """Parameters of the model's init, counted from its shapes on the
+        ``meta`` device (nothing is allocated)."""
+        from repro_torch.models.model import build_model  # lazy: avoids a cycle
+
+        shapes = build_model(self).param_shapes()
+        return sum(math.prod(t.shape) for t in _leaves(shapes))
+
+    def active_param_count(self) -> int:
+        """Active params per token (MoE: only top-k experts)."""
+        total = self.param_count()
+        if self.num_experts and self.num_experts_per_tok:
+            L = self.num_layers
+            expert_params = 3 * self.d_model * self.d_ff  # gate/up/down
+            inactive = L * (self.num_experts - self.num_experts_per_tok) * expert_params
+            return total - inactive
+        return total
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _leaves(v)
+    else:
+        yield tree
+
 
 _REGISTRY: dict = {}
 
@@ -89,6 +140,16 @@ def get_config(name: str) -> ModelConfig:
     return _REGISTRY[name][0]
 
 
+def get_reduced_config(name: str) -> ModelConfig:
+    _load_all()
+    return _REGISTRY[name][1]
+
+
+def list_configs() -> list:
+    _load_all()
+    return sorted(_REGISTRY)
+
+
 _LOADED = False
 
 
@@ -98,6 +159,28 @@ def _load_all() -> None:
         return
     import importlib
 
-    for mod in ("tinyllama_1_1b", "blockllm_demo"):
+    for mod in (
+        "qwen2_vl_7b",
+        "mixtral_8x22b",
+        "dbrx_132b",
+        "stablelm_12b",
+        "tinyllama_1_1b",
+        "qwen1_5_32b",
+        "qwen2_72b",
+        "zamba2_2_7b",
+        "xlstm_125m",
+        "seamless_m4t_medium",
+        "blockllm_demo",
+    ):
         importlib.import_module(f"repro_torch.configs.{mod}")
     _LOADED = True
+
+
+def applicable_shapes(cfg: ModelConfig) -> list:
+    """Shapes that apply to this arch (long_500k only for sub-quadratic)."""
+    out = []
+    for s in SHAPES.values():
+        if s.name == "long_500k" and not cfg.supports_long_context:
+            continue  # pure full-attention: skip
+        out.append(s)
+    return out

@@ -27,13 +27,17 @@ from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
-from torch.utils.weak import WeakIdKeyDictionary
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.batched_lora.ops import batched_lora
-from repro_torch.kernels.flash_attention.ops import flash_attention
 from repro_torch.models import layers as L
-from repro_torch.models.transformer import _mlp_layer
+from repro_torch.models.layers import cast_once as _cast
+from repro_torch.models.transformer import (
+    _kernel_impl,
+    _mlp_layer,
+    _out_proj,
+    prefill_attention,
+)
 
 # ---------------------------------------------------------------------------
 # parameter trees (nested dicts/lists of tensors or numpy arrays)
@@ -96,25 +100,6 @@ def tree_hash(tree) -> str:
     return h.hexdigest()[:16]
 
 
-# source tensor -> {dtype: its cast}: one cast per tensor, whichever blocks
-# hold it; keyed by identity (a tensor's == is elementwise) and weakly, so
-# an entry lives as long as its source tensor
-_CASTS = WeakIdKeyDictionary()
-
-
-def _cast(t: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
-    """``t.to(dtype)``, made once per (tensor, dtype) and shared."""
-    if t.dtype == dtype:  # no copy; an entry holding t would keep t alive
-        return t
-    casts = _CASTS.get(t)
-    if casts is None:
-        casts = _CASTS[t] = {}
-    out = casts.get(dtype)
-    if out is None:
-        out = casts[dtype] = t.to(dtype)
-    return out
-
-
 ATTENTION_KINDS = ("layer", "attention")  # block kinds that own KV state
 # parameters kept in fp32 at use: norm scales (rms_norm computes in fp32)
 # and the embedding (gathered in fp32, then cast, as in the reference)
@@ -153,6 +138,10 @@ class Block:
         cfg = self.cfg
         return (cfg.num_kv_heads or cfg.num_heads, cfg.resolved_head_dim)
 
+    @property
+    def bytes(self) -> int:
+        return tree_bytes(self.params)
+
     def flops_per_token(self) -> float:
         """2 * params is the dense-matmul flops estimate per token."""
         return 2.0 * self.n_params
@@ -190,27 +179,11 @@ def _proj(h, w):
                                                    *w.shape[1:])
 
 
-def _out_proj(o, wo):
-    """o (B, S, H, hd) @ wo (H, hd, D) -> (B, S, D)."""
-    return o.reshape(*o.shape[:-2], -1) @ wo.reshape(-1, wo.shape[-1])
-
-
 def _plain_qkv(h, p, adapters):
     q = _proj(h, p["wq"])
     k = _proj(h, p["wk"])
     v = _proj(h, p["wv"])
     return _peft_qkv(h, q, k, v, adapters)
-
-
-def _kernel_impl(x, attn_impl: str) -> Optional[str]:
-    """The kernel route ``attn_impl`` selects for a tensor: ``None`` for
-    ``auto`` on a CPU tensor (the plain code the JAX package runs on the
-    CPU), else ``"cuda"`` or ``"ref"`` (the kernel's plain version)."""
-    if attn_impl == "auto":
-        return "cuda" if x.is_cuda else None
-    if attn_impl not in ("ref", "cuda"):
-        raise ValueError(f"attn_impl {attn_impl!r}; one of auto, ref, cuda")
-    return attn_impl
 
 
 _LORA_BT = 128  # row tile of the LoRA kernel's adapter ids (one adapter)
@@ -243,7 +216,7 @@ def _qkv(h, p, adapters, attn_impl: str = "auto"):
     """q, k, v projections with the hop's PEFT deltas.  Under a kernel
     route a LoRA adapter's q and v go through the batched-LoRA kernel
     (base product and low-rank delta in one fp32 sum); ``auto`` on a CPU
-    tensor computes the JAX package's products (``_peft_qkv``)."""
+    tensor computes the reference's products (``_peft_qkv``)."""
     impl = _kernel_impl(h, attn_impl)
     lora = [a for a in adapters if a.kind == "lora"]
     if impl is None or not lora:
@@ -261,29 +234,12 @@ def _qkv(h, p, adapters, attn_impl: str = "auto"):
     return _peft_qkv(h, q, k, v, [x for x in adapters if x.kind != "lora"])
 
 
-def _prefill_attention(q, k, v, cfg, attn_impl: str):
-    """Causal prefill attention over (B, S, H, hd) tensors: the flash
-    kernel (or its plain version) on transposed views, or, for ``auto`` on
-    a CPU tensor, the JAX package's ``causal_attention``."""
-    impl = _kernel_impl(q, attn_impl)
-    if impl is None:
-        return L.causal_attention(q, k, v, chunk=cfg.attn_chunk,
-                                  window=cfg.sliding_window)
-    if cfg.sliding_window:
-        raise NotImplementedError(
-            "the flash-attention kernel has no sliding window")
-    o = flash_attention(q.transpose(1, 2), k.transpose(1, 2),
-                        v.transpose(1, 2), causal=True, impl=impl)
-    return o.transpose(1, 2)
-
-
-def _attn_sublayer(x, p, cfg, positions, adapters=()):
+def _attn_sublayer(x, p, cfg, positions, adapters=(), attn_impl="auto"):
     h = L.rms_norm(x, p["ln1"], cfg.norm_eps)
     q, k, v = _plain_qkv(h, p, adapters)
     q = L.apply_rope(q, positions, cfg.rope_theta)
     k = L.apply_rope(k, positions, cfg.rope_theta)
-    o = L.causal_attention(q, k, v, chunk=cfg.attn_chunk,
-                           window=cfg.sliding_window)
+    o = prefill_attention(q, k, v, cfg, attn_impl)
     return x + _out_proj(o, p["wo"])
 
 
@@ -305,9 +261,12 @@ def _positions(x, positions):
 
 
 def apply_block(block: Block, x, *, positions=None, adapters=(),
+                attn_impl: str = "auto",
                 compute_dtype: torch.dtype = L.COMPUTE_DTYPE):
     """x: hidden states (B, S, D) — or token ids for embed blocks, whose
-    output is cast to ``compute_dtype``."""
+    output is cast to ``compute_dtype``.  Attention follows ``attn_impl``
+    (``models.transformer.prefill_attention``): the flash kernel on a CUDA
+    tensor under ``auto``."""
     cfg = block.cfg
     if block.kind == "embed":
         return block.params["embed"][x.long()].to(compute_dtype)
@@ -318,13 +277,14 @@ def apply_block(block: Block, x, *, positions=None, adapters=(),
     if block.kind == "layer":
         positions = _positions(x, positions)
         x0 = x
-        x = _attn_sublayer(x, p, cfg, positions, adapters)
+        x = _attn_sublayer(x, p, cfg, positions, adapters, attn_impl)
         out = _ffn_sublayer(x, p, cfg, adapters)
         if "recover_a" in p:  # surrogate LoRA recovery (paper §5.2)
             out = out + (x0 @ p["recover_a"]) @ p["recover_b"]
         return out
     if block.kind == "attention":
-        return _attn_sublayer(x, p, cfg, _positions(x, positions), adapters)
+        return _attn_sublayer(x, p, cfg, _positions(x, positions), adapters,
+                              attn_impl)
     if block.kind == "ffn":
         return _ffn_sublayer(x, p, cfg, adapters)
     if block.kind == "stitch":
@@ -349,7 +309,8 @@ def block_prefill_raw(block: Block, x, *, positions=None, adapters=(),
     shared page pool.  ``attn_impl`` routes attention and LoRA q/v through
     the flash-attention and batched-LoRA kernels (``cuda``), their plain
     versions (``ref``), or by device (``auto``: kernels on a CUDA tensor,
-    the JAX package's plain code on a CPU tensor)."""
+    the port's copy of the reference's plain code on a CPU tensor); see
+    ``models.transformer.prefill_attention``."""
     if block.kind not in ATTENTION_KINDS:
         out = apply_block(block, x, positions=positions, adapters=adapters,
                           compute_dtype=compute_dtype)
@@ -361,11 +322,55 @@ def block_prefill_raw(block: Block, x, *, positions=None, adapters=(),
     q, k, v = _qkv(h, p, adapters, attn_impl)
     q = L.apply_rope(q, positions, cfg.rope_theta)
     k_r = L.apply_rope(k, positions, cfg.rope_theta)
-    o = _prefill_attention(q, k_r, v, cfg, attn_impl)
+    o = prefill_attention(q, k_r, v, cfg, attn_impl)
     out = x + _out_proj(o, p["wo"])
     if block.kind == "layer":
         out = _ffn_sublayer(out, p, cfg, adapters)
     return out, k_r, v
+
+
+def block_prefill(block: Block, x, *, positions=None, adapters=(),
+                  max_len=None, attn_impl: str = "auto",
+                  compute_dtype: torch.dtype = L.COMPUTE_DTYPE):
+    """Like apply_block, but attention-bearing blocks also return their
+    dense KV cache (a dict: ``k``/``v`` (B, S, KVH, hd), int8 with scales
+    if configured, a ring buffer under a sliding window) for
+    ``block_decode``; other blocks return ``None`` for it."""
+    out, k_r, v = block_prefill_raw(block, x, positions=positions,
+                                    adapters=adapters, attn_impl=attn_impl,
+                                    compute_dtype=compute_dtype)
+    if k_r is None:
+        return out, None
+    return out, L.finalize_prefill_cache(k_r, v, block.cfg, max_len)
+
+
+def block_decode(block: Block, x, cache, kv_len, *, adapters=(),
+                 compute_dtype: torch.dtype = L.COMPUTE_DTYPE):
+    """One-token step over the dense cache ``block_prefill`` returned.
+    x: (B, 1, D); kv_len (B,).  Returns (out, new_cache); a write at or
+    past the cache's end is dropped (a ring buffer wraps instead).
+
+    The reference runs plain jnp here (no TPU kernel), and so does this,
+    on any device; the serving engine's decode is ``block_decode_paged``."""
+    cfg = block.cfg
+    if block.kind not in ATTENTION_KINDS:
+        return apply_block(block, x, adapters=adapters,
+                           compute_dtype=compute_dtype), cache
+    p = block.compute_params(x.dtype)
+    positions = kv_len[:, None]
+    h = L.rms_norm(x, p["ln1"], cfg.norm_eps)
+    q, k, v = _plain_qkv(h, p, adapters)
+    q = L.apply_rope(q, positions, cfg.rope_theta)
+    k = L.apply_rope(k, positions, cfg.rope_theta)
+    cache = L.cache_insert(cache, k, v, kv_len, cfg)
+    kc, vc = L.cache_kv_arrays(cache, cfg, x.dtype)
+    S = kc.shape[1]
+    valid = torch.clamp(kv_len + 1, max=S)
+    o = L.decode_attention(q, kc, vc, valid, window=0)
+    out = x + _out_proj(o.to(x.dtype), p["wo"])
+    if block.kind == "layer":
+        out = _ffn_sublayer(out, p, cfg, adapters)
+    return out, cache
 
 
 def block_decode_paged(block: Block, x, k_pages, v_pages, block_tables,
@@ -605,14 +610,16 @@ class BlockChain:
 
 
 def run_chain(zoo, chain: BlockChain, tokens, *, block_override=None,
+              attn_impl: str = "auto",
               compute_dtype: torch.dtype = L.COMPUTE_DTYPE):
     """Execute a chain end-to-end (offline/eval path; the online engine
-    drives blocks individually with KV state)."""
+    drives blocks individually with KV state).  Attention follows
+    ``attn_impl``, as in ``apply_block``."""
     x = tokens
     for step in chain.steps:
         bid = (block_override or {}).get(step.block_id, step.block_id)
         block = zoo.blocks[bid]
         adapters = tuple(zoo.blocks[a] for a in step.adapter_ids)
-        x = apply_block(block, x, adapters=adapters,
+        x = apply_block(block, x, adapters=adapters, attn_impl=attn_impl,
                         compute_dtype=compute_dtype)
     return x

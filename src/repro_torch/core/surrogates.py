@@ -84,7 +84,9 @@ def build_surrogate(block: Block, prune_ratio: float = 0.5, *,
 
 def surrogate_fidelity(block: Block, surrogate: Block, probe) -> float:
     """Output cosine similarity on probe hidden states (paper Table 4),
-    accumulated in float64 on the host as the reference does."""
+    accumulated in float64 on the host as the reference does.  Attention
+    follows ``apply_block``'s ``auto`` route: the flash kernel on the
+    card, one launch per attention-bearing block."""
     with torch.no_grad():
         out_a = apply_block(block, probe)
         out_b = apply_block(surrogate, probe)

@@ -14,19 +14,24 @@ Lazy partitioning (Fig. 11):
   split into attention+ffn so the FFN remains shared (Fig. 11 step 3).
 - Surrogates for speculative serving (paper §5.2): FFN-pruned copies of
   blocks, built on first use and kept in a bounded LRU cache.
-
-The block profiler waits for a later slice.
+- Stitching blocks between models of different widths (paper §4.3), and a
+  per-block profiler feeding the cost model (paper §6).
 """
 from __future__ import annotations
 
+import time
 from collections import OrderedDict
+from dataclasses import dataclass, field
 from typing import Dict, List, Tuple
+
+import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.blocks import (
     Block,
     BlockChain,
     ChainStep,
+    apply_block,
     tree_bytes,
     tree_hash,
     tree_leaves,
@@ -42,11 +47,21 @@ def _layer_params(stacked: dict, i: int) -> dict:
     return {k: v[i] for k, v in stacked.items()}
 
 
+@dataclass
+class ProfileRecord:
+    """Paper §6: per-block profiling for the online cost model."""
+    compute_time_per_token: Dict[int, float] = field(default_factory=dict)  # batch -> s
+    load_time_s: float = 0.0
+    bytes: int = 0
+
+
 class BlockZoo:
     def __init__(self):
         self.blocks: Dict[str, Block] = {}
         self.chains: Dict[str, BlockChain] = {}
         self.equivalences: Dict[Tuple[str, str], float] = {}
+        self.stitches: Dict[Tuple[int, int], str] = {}  # (d_in,d_out) -> block id
+        self.profiles: Dict[str, ProfileRecord] = {}
         self.surrogates: Dict[str, str] = {}  # block id -> surrogate block id
         # bounded surrogate cache for speculative serving (paper §5.2):
         # keyed by (parent block id — which embeds the parent params'
@@ -211,6 +226,10 @@ class BlockZoo:
         return [(b, s) for (a, b), s in self.equivalences.items()
                 if a == block_id]
 
+    def add_stitch(self, block: Block):
+        self.blocks[block.id] = block
+        self.stitches[(block.d_in, block.d_out)] = block.id
+
     # ------------------------------------------------------------------
     # storage accounting (paper Fig. 5)
     # ------------------------------------------------------------------
@@ -233,3 +252,39 @@ class BlockZoo:
     def redundancy_fraction(self) -> float:
         pm = self.per_model_bytes()
         return 1.0 - self.zoo_bytes() / pm if pm else 0.0
+
+    # ------------------------------------------------------------------
+    def profile_block(self, block_id: str, batch_sizes=(1, 8, 32),
+                      seq_len: int = 64) -> ProfileRecord:
+        """Paper §6: measure per-batch compute time of a block where its
+        parameters live, on bf16 zeros (token ids for an embed block),
+        after one warm-up call.  On a CUDA device: CUDA events around one
+        call, read after synchronizing; on the CPU: the host clock, as the
+        reference times it."""
+        block = self.blocks[block_id]
+        rec = ProfileRecord(bytes=block.bytes)
+        dev = tree_leaves(block.params)[0].device
+        for bs in batch_sizes:
+            if block.kind == "embed":
+                x = torch.zeros((bs, seq_len), dtype=torch.int32, device=dev)
+            else:
+                x = torch.zeros((bs, seq_len, block.d_in),
+                                dtype=torch.bfloat16, device=dev)
+            with torch.no_grad():
+                apply_block(block, x)  # warm-up: casts, kernel loads
+                if dev.type == "cuda":
+                    start = torch.cuda.Event(enable_timing=True)
+                    end = torch.cuda.Event(enable_timing=True)
+                    torch.cuda.synchronize(dev)
+                    start.record()
+                    apply_block(block, x)
+                    end.record()
+                    end.synchronize()
+                    dt = start.elapsed_time(end) / 1e3
+                else:
+                    t0 = time.perf_counter()
+                    apply_block(block, x)
+                    dt = time.perf_counter() - t0
+            rec.compute_time_per_token[bs] = dt / (bs * seq_len)
+        self.profiles[block_id] = rec
+        return rec

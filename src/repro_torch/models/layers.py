@@ -1,14 +1,21 @@
 """Shared neural-net layers in PyTorch (fp32 params, bf16 compute) — the
-port of ``repro.models.layers`` that the serving path needs.
+port of ``repro.models.layers``: norms, RoPE (and qwen2-vl's M-RoPE), the
+reference attention, the dense KV cache (a ring buffer under a sliding
+window, int8 per (token, head) as an option) and the MLPs.
 
 The compute dtype is an explicit argument wherever it is chosen (the embed
-cast, the KV pools), never read from the environment, so a caller picks
-fp32 for tight comparisons without depending on import order.  Every other
-function computes in the dtype of its input, as the reference does.
+cast, the KV caches and pools), never read from the environment, so a
+caller picks fp32 for tight comparisons without depending on import order.
+Every other function computes in the dtype of its input, as the reference
+does.
 
 Where the reference contracts with ``preferred_element_type=float32``
 (attention scores), the operands are up-cast to fp32 before the product so
 the sum is never rounded to bf16.
+
+The cache helpers write in place where the reference scatters into a
+donated buffer.  A write past the cache's end is dropped, as JAX drops an
+out-of-bounds scatter (torch indexing would raise instead).
 """
 from __future__ import annotations
 
@@ -16,6 +23,9 @@ import math
 from typing import Optional, Tuple
 
 import torch
+from torch.utils.weak import WeakIdKeyDictionary
+
+from repro_torch.configs.base import ModelConfig
 
 # bf16 activations by default; fp32 weights are cast at use (DESIGN.md §2)
 COMPUTE_DTYPE = torch.bfloat16
@@ -49,6 +59,27 @@ def dense_init(gen: torch.Generator, shape, in_axis_size: Optional[int] = None,
     return out.mul_(std)
 
 
+# source tensor -> {dtype: its cast}: one cast per tensor, whoever reads it;
+# keyed by identity (a tensor's == is elementwise) and weakly, so an entry
+# lives as long as its source tensor
+_CASTS = WeakIdKeyDictionary()
+
+
+def cast_once(t: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """``t.to(dtype)``, made once per (tensor, dtype) and shared: bitwise
+    what the reference's per-use ``astype`` gives, read at half the bytes
+    in bf16 on every later use."""
+    if t.dtype == dtype:  # no copy; an entry holding t would keep t alive
+        return t
+    casts = _CASTS.get(t)
+    if casts is None:
+        casts = _CASTS[t] = {}
+    out = casts.get(dtype)
+    if out is None:
+        out = casts[dtype] = t.to(dtype)
+    return out
+
+
 # ---------------------------------------------------------------------------
 # norms
 # ---------------------------------------------------------------------------
@@ -73,15 +104,33 @@ def rope_freqs(head_dim: int, theta: float, device=None) -> torch.Tensor:
     return 1.0 / (theta ** exps)
 
 
+def _mrope_slots(sections: Tuple[int, ...], n: int) -> torch.Tensor:
+    """Section id of each of the ``n`` frequency slots: ``jnp.repeat`` with
+    ``total_repeat_length=n`` (cut at n, or the last id repeated up to n)."""
+    ids = [i for i, c in enumerate(sections) for _ in range(c)][:n]
+    ids += [ids[-1]] * (n - len(ids))
+    return torch.tensor(ids, dtype=torch.long)
+
+
 def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float,
                mrope_sections: Tuple[int, ...] = ()) -> torch.Tensor:
-    """x: (B, S, H, hd); positions: (B, S) integer.  Rotates split halves in
-    fp32 and casts back to x's dtype."""
-    if mrope_sections:
-        raise NotImplementedError("M-RoPE is not part of the PyTorch port")
+    """x: (B, S, H, hd); positions: (B, S) integer, or (B, S, 3) for
+    M-RoPE.  Rotates split halves in fp32 and casts back to x's dtype.
+
+    M-RoPE (qwen2-vl): the head_dim/2 frequency slots are split into
+    sections; each section takes its angle from a different position
+    stream (temporal / height / width)."""
     hd = x.shape[-1]
     inv = rope_freqs(hd, theta, device=x.device)  # (hd/2,)
-    ang = positions.float()[..., None] * inv[None, None, :]  # (B, S, hd/2)
+    if mrope_sections:
+        if positions.dim() != 3 or positions.shape[-1] != len(mrope_sections):
+            raise ValueError(f"M-RoPE positions {tuple(positions.shape)}: "
+                             f"want (B, S, {len(mrope_sections)})")
+        sec = _mrope_slots(mrope_sections, hd // 2).to(positions.device)
+        pos = positions.float()[..., sec]  # (B, S, hd/2)
+        ang = pos * inv[None, None, :]
+    else:
+        ang = positions.float()[..., None] * inv[None, None, :]  # (B,S,hd/2)
     sin = torch.sin(ang)[:, :, None, :]
     cos = torch.cos(ang)[:, :, None, :]
     x1, x2 = x.float().chunk(2, dim=-1)
@@ -135,6 +184,209 @@ def causal_attention(q, k, v, *, chunk: int, window: int = 0):
     return out[:, :S]
 
 
+def decode_attention(q, k_cache, v_cache, kv_len, *, window: int = 0,
+                     kv_chunk: int = 0):
+    """One-token attention over a (dequantized) KV cache.
+
+    q: (B, 1, Hq, hd); caches: (B, S, KVH, hd); kv_len: (B,) valid lengths.
+    ``kv_chunk`` > 0 loops over KV blocks with an online softmax
+    (flash-style): score tensors never grow beyond one block.
+    """
+    B, _, Hq, hd = q.shape
+    S, KVH = k_cache.shape[1], k_cache.shape[2]
+    G = Hq // KVH
+    qg = q.reshape(B, KVH, G, hd).float()
+    kv_len = kv_len.to(q.device)
+    if kv_chunk and S > kv_chunk and S % kv_chunk == 0:
+        m = torch.full((B, KVH, G), NEG_INF, dtype=torch.float32,
+                       device=q.device)
+        l = torch.zeros((B, KVH, G), dtype=torch.float32, device=q.device)
+        acc = torch.zeros((B, KVH, G, hd), dtype=torch.float32,
+                          device=q.device)
+        for i in range(S // kv_chunk):
+            kb = k_cache[:, i * kv_chunk:(i + 1) * kv_chunk]
+            vb = v_cache[:, i * kv_chunk:(i + 1) * kv_chunk]
+            s = torch.einsum("bhgd,bshd->bhgs", qg, kb.float()) / math.sqrt(hd)
+            kpos = i * kv_chunk + torch.arange(kv_chunk, device=q.device)[None]
+            mask = kpos < kv_len[:, None]
+            if window:
+                mask &= kpos >= torch.clamp(kv_len[:, None] - window, min=0)
+            s = s.masked_fill(~mask[:, None, None], NEG_INF)
+            m_new = torch.maximum(m, s.amax(dim=-1))
+            p = torch.exp(s - m_new[..., None])
+            alpha = torch.exp(m - m_new)
+            l = l * alpha + p.sum(dim=-1)
+            acc = acc * alpha[..., None] + torch.einsum(
+                "bhgs,bshd->bhgd", p.to(vb.dtype), vb).float()
+            m = m_new
+        out = acc / torch.clamp(l, min=1e-30)[..., None]
+        return out.reshape(B, 1, Hq, hd).to(q.dtype)
+    scores = torch.einsum("bhgd,bshd->bhgs", qg,
+                          k_cache.float()) / math.sqrt(hd)
+    kpos = torch.arange(S, device=q.device)[None, :]  # (1, S)
+    mask = kpos < kv_len[:, None]
+    if window:
+        mask &= kpos >= torch.clamp(kv_len[:, None] - window, min=0)
+    scores = scores.masked_fill(~mask[:, None, None], NEG_INF)
+    probs = torch.softmax(scores, dim=-1)
+    out = torch.einsum("bhgs,bshd->bhgd", probs.to(v_cache.dtype), v_cache)
+    return out.reshape(B, 1, Hq, hd)
+
+
+# ---------------------------------------------------------------------------
+# KV cache (dense ring buffer; int8 quantization option)
+# ---------------------------------------------------------------------------
+
+
+def quantize_kv(x: torch.Tensor):
+    """Per-(token, head) symmetric int8.  x: (..., hd).  Returns (codes
+    int8, scale fp32 (..., 1))."""
+    x32 = x.float()
+    amax = x32.abs().amax(dim=-1, keepdim=True)
+    scale = torch.clamp(amax, min=1e-6) / 127.0
+    q = torch.clamp(torch.round(x32 / scale), -127, 127).to(torch.int8)
+    return q, scale
+
+
+def dequantize_kv(q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    return q.float() * scale
+
+
+def init_kv_cache(cfg: ModelConfig, num_layers: int, batch: int,
+                  max_len: int, kv_heads: int, *,
+                  dtype: torch.dtype = COMPUTE_DTYPE, device=None) -> dict:
+    """Zeroed stacked cache: ``k``/``v`` (L, B, S, KVH, hd) in ``dtype``,
+    or int8 codes with fp32 ``k_scale``/``v_scale`` (L, B, S, KVH, 1);
+    S is ``max_len``, at most the sliding window."""
+    hd = cfg.resolved_head_dim
+    if cfg.sliding_window:
+        max_len = min(max_len, cfg.sliding_window)
+    shape = (num_layers, batch, max_len, kv_heads, hd)
+    if cfg.kv_cache_dtype == "int8":
+        z = torch.zeros(shape, dtype=torch.int8, device=device)
+        s = torch.zeros(shape[:-1] + (1,), dtype=torch.float32, device=device)
+        return {"k": z, "v": z.clone(), "k_scale": s, "v_scale": s.clone()}
+    z = torch.zeros(shape, dtype=dtype, device=device)
+    return {"k": z, "v": z.clone()}
+
+
+def _kv_entries(cfg: ModelConfig, k_new, v_new) -> dict:
+    """The cache entries of new K/V: int8 codes and scales, or K/V as they
+    are (cast to the cache's dtype by the writer)."""
+    if cfg.kv_cache_dtype == "int8":
+        kq, ks = quantize_kv(k_new)
+        vq, vs = quantize_kv(v_new)
+        return {"k": kq, "v": vq, "k_scale": ks, "v_scale": vs}
+    return {"k": k_new, "v": v_new}
+
+
+def cache_insert(cache_layer: dict, k_new, v_new, positions,
+                 cfg: ModelConfig) -> dict:
+    """Insert new K/V at per-sequence positions (ring buffer for SWA) into
+    a new cache dict; writes at or past the cache's end are dropped.
+
+    cache_layer entries: (B, S, KVH, hd) [+ scales]; k_new: (B, T, KVH, hd);
+    positions: (B,) absolute write position of the first new token.
+    """
+    S = cache_layer["k"].shape[1]
+    B, T = k_new.shape[:2]
+    dev = cache_layer["k"].device
+    slots = positions.to(dev).long()[:, None] + torch.arange(T, device=dev)
+    if cfg.sliding_window:
+        slots = slots % S  # ring buffer
+    # dropped writes land in one spare slot past the end, cut off after
+    slots = torch.where(slots < S, slots, S)
+    rows = torch.arange(B, device=dev)[:, None]
+    out = dict(cache_layer)
+    for name, val in _kv_entries(cfg, k_new, v_new).items():
+        buf = cache_layer[name]
+        ext = torch.cat([buf, buf[:, :1]], dim=1)
+        ext[rows, slots] = val.to(buf.dtype)
+        out[name] = ext[:, :S]
+    return out
+
+
+def _prefill_cache_len(cfg: ModelConfig, S: int, max_len=None) -> int:
+    cache_len = max_len or S
+    if cfg.sliding_window:
+        cache_len = min(cache_len, max(cfg.sliding_window, 1))
+        cache_len = max(cache_len, min(S, cfg.sliding_window))
+    return cache_len
+
+
+def finalize_prefill_cache(k, v, cfg: ModelConfig, max_len=None,
+                           seq_axis: int = 1) -> dict:
+    """Turn full-sequence prefill K/V into a decode cache.
+
+    - sliding window: keep the last W tokens at ring slots pos % cache_len;
+    - otherwise pad the seq axis up to ``max_len`` (decode growth budget).
+    Returns a cache dict (quantized if configured), K/V in k's dtype.
+    """
+    S = k.shape[seq_axis]
+    cache_len = _prefill_cache_len(cfg, S, max_len)
+    if cfg.sliding_window and S > cache_len:
+        # last cache_len tokens land at slots pos % cache_len (static perm)
+        slots = torch.arange(S - cache_len, S) % cache_len
+        inv = torch.argsort(slots).to(k.device)
+        k = k.narrow(seq_axis, S - cache_len, cache_len).index_select(
+            seq_axis, inv)
+        v = v.narrow(seq_axis, S - cache_len, cache_len).index_select(
+            seq_axis, inv)
+    elif cache_len > S:
+        pad = [0, 0] * (k.dim() - 1 - seq_axis) + [0, cache_len - S]
+        k = torch.nn.functional.pad(k, pad)
+        v = torch.nn.functional.pad(v, pad)
+    return _kv_entries(cfg, k, v)
+
+
+def cache_kv_arrays(cache_layer: dict, cfg: ModelConfig,
+                    compute_dtype: torch.dtype = COMPUTE_DTYPE):
+    """One layer's K/V as attention reads them (int8 dequantized to
+    ``compute_dtype``)."""
+    if cfg.kv_cache_dtype == "int8":
+        k = dequantize_kv(cache_layer["k"], cache_layer["k_scale"])
+        v = dequantize_kv(cache_layer["v"], cache_layer["v_scale"])
+        return k.to(compute_dtype), v.to(compute_dtype)
+    return cache_layer["k"], cache_layer["v"]
+
+
+# --- in-place decode-cache access (one-token writes into the stacked cache,
+# never whole-layer rewrites) ---
+
+
+def cache_insert_layer(cache: dict, layer_idx: int, k_new, v_new, positions,
+                       cfg: ModelConfig) -> dict:
+    """Write one new token into the stacked cache at (layer_idx, b, slot),
+    in place; a write at or past the cache's end is dropped.
+
+    cache entries: (L, B, S, KVH, hd) [+ scales]; k_new/v_new: (B, 1, KVH, hd);
+    positions: (B,) absolute position of the new token.
+    """
+    S = cache["k"].shape[2]
+    B = k_new.shape[0]
+    dev = cache["k"].device
+    slots = positions.to(dev).long()
+    if cfg.sliding_window:
+        slots = slots % S
+    keep = slots < S
+    slots = torch.clamp(slots, max=S - 1)  # a dropped write rewrites itself
+    rows = torch.arange(B, device=dev)
+    for name, val in _kv_entries(cfg, k_new, v_new).items():
+        buf = cache[name][layer_idx]
+        old = buf[rows, slots]
+        mask = keep.reshape((B,) + (1,) * (old.dim() - 1))
+        buf[rows, slots] = torch.where(mask, val[:, 0].to(buf.dtype), old)
+    return cache
+
+
+def cache_layer_arrays(cache: dict, layer_idx: int, cfg: ModelConfig,
+                       compute_dtype: torch.dtype = COMPUTE_DTYPE):
+    """Layer ``layer_idx``'s K/V (a dequantized copy for int8, else views)
+    from the stacked cache."""
+    return cache_kv_arrays({k: v[layer_idx] for k, v in cache.items()}, cfg,
+                           compute_dtype)
+
+
 # ---------------------------------------------------------------------------
 # MLP pieces
 # ---------------------------------------------------------------------------
@@ -143,3 +395,14 @@ def causal_attention(q, k, v, *, chunk: int, window: int = 0):
 def gelu(x: torch.Tensor) -> torch.Tensor:
     """``jax.nn.gelu``'s default: the tanh approximation."""
     return torch.nn.functional.gelu(x, approximate="tanh")
+
+
+def swiglu(x, w_gate, w_up, w_down):
+    h = torch.nn.functional.silu(x @ w_gate.to(x.dtype))
+    h = h * (x @ w_up.to(x.dtype))
+    return h @ w_down.to(x.dtype)
+
+
+def gelu_mlp(x, w_in, b_in, w_out, b_out):
+    h = gelu(x @ w_in.to(x.dtype) + b_in.to(x.dtype))
+    return h @ w_out.to(x.dtype) + b_out.to(x.dtype)

@@ -39,7 +39,12 @@ import numpy as np
 import torch
 
 from repro_torch.core import prng
-from repro_torch.core.blocks import Block, BlockChain, chain_signature
+from repro_torch.core.blocks import (
+    ATTENTION_KINDS,
+    Block,
+    BlockChain,
+    chain_signature,
+)
 from repro_torch.core.equivalence import vocab_probability_similarity
 from repro_torch.core.surrogates import surrogate_fidelity
 from repro_torch.core.zoo import BlockZoo
@@ -149,7 +154,7 @@ class BlockEngine(Server):
                      "host_syncs", "attn_calls", "prefill_attn_calls",
                      "lora_calls", "preemptions", "spills",
                      "recalc_readmits", "completed", "tokens_emitted",
-                     "spec_attempts", "spec_hits"):
+                     "spec_attempts", "spec_hits", "probe_attn_calls"):
             self.metrics.counter(name)  # pre-register: snapshots start at 0
         self.metrics.set_gauge("max_block_batch", c.max_block_batch)
         self.metrics.set_gauge("spec_accept_rate", 0.0)
@@ -186,6 +191,9 @@ class BlockEngine(Server):
         #   into freshly moved KV slots amplifies thrash)
         self._c_spec_attempts = self.metrics.counter("spec_attempts")
         self._c_spec_hits = self.metrics.counter("spec_hits")
+        # attention calls of the fidelity probe: block and surrogate, each
+        # a prefill attention (the flash kernel on the card)
+        self._c_probe_attn_calls = self.metrics.counter("probe_attn_calls")
 
     @property
     def pools(self):
@@ -474,6 +482,8 @@ class BlockEngine(Server):
                 sur = self.zoo.blocks[sid]
                 fidelity = min(fidelity, surrogate_fidelity(
                     block, sur, self._probe(block.d_in)))
+                self._c_probe_attn_calls.inc(
+                    2 * (block.kind in ATTENTION_KINDS))
                 sur_steps.append((sur, adapters))
                 pruned += 1
             else:

@@ -574,3 +574,112 @@ def test_batched_lora_kernel_rejects_bad_inputs(card):
         batched_lora(x, w, torch.zeros(1, 64, 65, device=card),
                      torch.zeros(1, 65, 64, device=card), tiles, bt=64,
                      impl="cuda")
+
+
+# ---------------------------------------------------------------------------
+# the dense Model API's kernel routes: one page of S tokens per sequence
+# ---------------------------------------------------------------------------
+
+ONE_PAGE_HEADS = [(32, 4, 64), (64, 8, 128)]  # TinyLlama; qwen2-72b
+
+
+def _one_page_inputs(B, Hq, KVH, hd, S, dtype, dev, seed=11):
+    """A stacked cache layer (B, S, KVH, hd) seen as B pages of S tokens,
+    the table arange(B), kv_len ragged up to S - 1."""
+    rng = np.random.RandomState(seed)
+    q, kn, vn = (torch.from_numpy(rng.standard_normal(s).astype(np.float32))
+                 .to(dev, dtype) for s in ((B, Hq, hd), (B, KVH, hd),
+                                           (B, KVH, hd)))
+    k, v = (torch.from_numpy(rng.standard_normal((B, S, KVH, hd))
+                             .astype(np.float32)).to(dev, dtype)
+            for _ in range(2))
+    tables = torch.arange(B, dtype=torch.int32, device=dev)[:, None]
+    kv_len = torch.tensor([0, 63, S // 2 + 1, S - 1][:B], dtype=torch.int32,
+                          device=dev)
+    return q, kn, vn, k, v, tables, kv_len
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("heads", ONE_PAGE_HEADS)
+@pytest.mark.parametrize("S", [600, 576])
+def test_paged_decode_one_page_per_sequence(card, S, heads, dtype):
+    """Page = S (576 = the model_api phase's max_len, 600 off every tile
+    and split edge): the fused step against write_token_to_pages + the
+    plain version, pages bitwise."""
+    q, kn, vn, k, v, tables, kv_len = _one_page_inputs(
+        4, *heads, S, getattr(torch, dtype), card)
+    want_k, want_v = write_token_to_pages(k.clone(), v.clone(), tables,
+                                          kv_len, kn, vn)
+    want = paged_attention_ref(q, want_k, want_v, tables, kv_len + 1)
+    o, _, _ = paged_decode_step(q, kn, vn, k, v, tables, kv_len, impl="cuda")
+    torch.cuda.synchronize()
+    assert torch.equal(k, want_k) and torch.equal(v, want_v)
+    torch.testing.assert_close(o.float(), want.float(), **TOL[dtype])
+    if dtype == "bfloat16":
+        assert bf16_ulp_err(o, want) <= 1.0
+
+
+def _small_dense_cfg():
+    """A 2-layer dense config with the kernels' head dim (64)."""
+    from repro_torch.configs import get_reduced_config
+
+    return get_reduced_config("tinyllama-1.1b").replace(
+        d_model=256, num_heads=4, num_kv_heads=2, d_ff=256)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_dense_decode_drops_the_write_at_kv_len_S(card, dtype):
+    """The Model API's decode at kv_len = S - 1, then S: the kernel route
+    (the fused step, then the masked write + the attend-only launch over S
+    positions) against the kernels' plain versions (``ref``): logits at
+    the kernel tolerance, layer 0's cache (no attention upstream) bitwise,
+    the whole cache at the tolerance in fp32, and the write at S dropped."""
+    from repro_torch.models import transformer as T
+    from repro_torch.models.model import build_model
+
+    cfg = _small_dense_cfg()
+    model = build_model(cfg, compute_dtype=getattr(torch, dtype))
+    params = model.init(torch.Generator(card).manual_seed(0))
+    g = torch.Generator(card).manual_seed(1)
+    tokens = torch.randint(0, cfg.vocab_size, (2, 10), generator=g,
+                           device=card, dtype=torch.int32)
+    caches = {impl: model.prefill(params, {"tokens": tokens}, max_len=12,
+                                  attn_impl=impl)[1]
+              for impl in ("cuda", "ref")}
+    for kv in ((11, 9), (12, 10)):
+        batch = {"tokens": torch.randint(0, cfg.vocab_size, (2, 1),
+                                         generator=g, device=card,
+                                         dtype=torch.int32),
+                 "kv_len": torch.tensor(kv, dtype=torch.int32, device=card)}
+        row0 = caches["cuda"]["k"][:, 0].clone()
+        before = t_kernel.launches
+        got, _ = model.decode_step(params, caches["cuda"], batch,
+                                   attn_impl="cuda")
+        want, _ = model.decode_step(params, caches["ref"], batch,
+                                    attn_impl="ref")
+        torch.cuda.synchronize()
+        assert t_kernel.launches == before + cfg.num_layers
+        torch.testing.assert_close(got.float(), want.float(), **TOL[dtype])
+        if kv[0] >= 12:  # row 0's write at S was dropped
+            assert torch.equal(caches["cuda"]["k"][:, 0], row0)
+        for name in ("k", "v"):
+            assert torch.equal(caches["cuda"][name][0],
+                               caches["ref"][name][0])
+            if dtype == "float32":
+                torch.testing.assert_close(caches["cuda"][name],
+                                           caches["ref"][name], **TOL[dtype])
+    assert T.decode_route(cfg, got, "auto") == "paged"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape", [(2, 40, 40, 256, 128),   # qwen1.5-32b, G=1
+                                   (4, 64, 8, 128, 128)])   # qwen2-72b, G=8
+def test_flash_attention_hd128_main_path_shapes(card, shape, dtype):
+    q, k, v = _flash_inputs(*shape, getattr(torch, dtype), card)
+    got = flash_attention(q, k, v, causal=True, impl="cuda")
+    torch.cuda.synchronize()
+    want = flash_attention_ref(q, k, v, causal=True)
+    torch.testing.assert_close(got.float(), want.float(), **TOL[dtype])

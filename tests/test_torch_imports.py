@@ -62,7 +62,31 @@ def test_no_jax_or_repro_imports(path):
 # names the port keeps beside the JAX package's, module by module
 PORTED_NAMES = {
     "repro_torch.core.prng": ("PRNGKey", "split", "random_bits", "normal"),
-    "repro_torch.core.equivalence": ("vocab_probability_similarity",),
+    "repro_torch.core.equivalence": ("vocab_probability_similarity",
+                                     "param_equivalence",
+                                     "layerwise_vocab_probs",
+                                     "cross_size_equivalence"),
+    "repro_torch.core.stitching": ("_hidden_at_layer", "apply_stitch",
+                                   "make_stitch_block",
+                                   "stitched_head_similarity",
+                                   "train_stitching_block"),
+    "repro_torch.core.zoo": ("BlockZoo", "ProfileRecord"),
+    "repro_torch.core.blocks": ("block_prefill", "block_decode",
+                                "apply_block", "run_chain"),
+    "repro_torch.configs.base": ("ShapeConfig", "SHAPES", "ModelConfig",
+                                 "get_config", "get_reduced_config",
+                                 "list_configs", "applicable_shapes"),
+    "repro_torch.models.layers": (
+        "decode_attention", "quantize_kv", "dequantize_kv", "init_kv_cache",
+        "cache_insert", "finalize_prefill_cache", "cache_kv_arrays",
+        "cache_insert_layer", "cache_layer_arrays", "swiglu", "gelu_mlp"),
+    "repro_torch.models.transformer": (
+        "init_dense", "dense_prefill", "dense_decode_step",
+        "init_cache_shape", "_embed_tokens", "_positions", "_qkv",
+        "_attn_layer_full", "_dense_layer_fwd"),
+    "repro_torch.models.model": ("Model", "build_model",
+                                 "params_from_numpy", "cache_from_numpy"),
+    "repro_torch.examples.quickstart": ("main",),
     "repro_torch.core.peft": ("shared_param_fraction",),
     "repro_torch.serving.request": ("Request", "generate_trace",
                                     "as_serve_requests"),
@@ -93,6 +117,24 @@ def test_zoo_has_equivalent_blocks():
     from repro_torch.core.zoo import BlockZoo
 
     assert callable(BlockZoo.equivalent_blocks)
+
+
+def test_zoo_has_stitches_and_profiler():
+    from repro_torch.core.blocks import Block
+    from repro_torch.core.zoo import BlockZoo
+
+    assert callable(BlockZoo.add_stitch) and callable(BlockZoo.profile_block)
+    assert isinstance(Block.bytes, property)
+
+
+def test_every_reference_config_module_has_its_copy():
+    """The port registers every config of ``src/repro/configs`` (read as
+    files: the port may not import the JAX package)."""
+    ref = sorted(p.name for p in (ROOT / "src" / "repro" / "configs")
+                 .glob("*.py") if p.name not in ("__init__.py", "base.py"))
+    mine = sorted(p.name for p in (PKG / "configs").glob("*.py")
+                  if p.name not in ("__init__.py", "base.py"))
+    assert mine == ref and len(ref) == 11
 
 
 KERNEL_MODULES = ("paged_attention", "flash_attention", "batched_lora")

@@ -70,8 +70,14 @@ def test_apply_rope(dtype, hd):
 
 
 def test_apply_rope_rejects_mrope():
-    with pytest.raises(NotImplementedError):
-        TL.apply_rope(torch.zeros(1, 2, 1, 8), torch.zeros(1, 2, 3), 1e4,
+    """M-RoPE is ported (``tests/test_torch_model_api.py`` holds it against
+    the reference); positions that are not one stream per section are
+    rejected, as the reference asserts."""
+    with pytest.raises(ValueError, match="M-RoPE"):
+        TL.apply_rope(torch.zeros(1, 2, 1, 8), torch.zeros(1, 2), 1e4,
+                      mrope_sections=(2, 1, 1))
+    with pytest.raises(ValueError, match="M-RoPE"):
+        TL.apply_rope(torch.zeros(1, 2, 1, 8), torch.zeros(1, 2, 2), 1e4,
                       mrope_sections=(2, 1, 1))
 
 

@@ -24,6 +24,7 @@ import pytest
 import torch
 
 from repro_torch.core.blocks import (
+    ATTENTION_KINDS,
     chain_decode_fused,
     chain_decode_spec_fused,
     chain_prefill_fused,
@@ -428,6 +429,25 @@ def test_spec_slots_carry_lookahead_headroom(zoo):
     for name in ("spec_attempts", "spec_hits"):
         assert spec.stats[name] == plain.stats[name] == 0
     assert spec.metrics.gauge("spec_accept_rate").value == 0.0
+
+
+def test_probe_attention_calls_counted(zoo):
+    """The fidelity probe runs each pruned attention-bearing hop's block
+    and surrogate once (two prefill attentions, the flash kernel on the
+    card), counted in ``probe_attn_calls`` once per signature built."""
+    spec = _engine(zoo, "float32", speculation=True)
+    assert spec.stats["probe_attn_calls"] == 0
+    want = 0
+    for app in APPS:
+        steps = spec._steps(spec.zoo.chains[app], None)[0]
+        sig = chain_signature(steps)
+        if sig not in spec._spec:
+            want += 2 * sum(b.kind in ATTENTION_KINDS and "w_gate" in b.params
+                            for b, _ in steps)
+        spec._spec_state(sig, steps)
+        assert spec.stats["probe_attn_calls"] == want
+    spec._spec_state(sig, steps)  # built: no probe
+    assert spec.stats["probe_attn_calls"] == want > 0
 
 
 # ---------------------------------------------------------------------------
