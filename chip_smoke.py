@@ -101,7 +101,23 @@ script exits non-zero without printing a result:
    layers: ``cross_size_equivalence``, ``train_stitching_block`` (the
    deepest loss under half the untrained stitch's), the stitched head
    similarity above the untrained one's, ``add_stitch`` + ``apply_block``,
-   the peak memory.
+   the peak memory;
+9. the MoE family and the encoder-decoder on the Model API: moe_dbrx and
+   moe_mixtral -- dbrx-132b and mixtral-8x22b at their published widths,
+   depth cut to 2 layers, 4 padded prompts and 32 greedy steps on the
+   dense expert scan (flash once per layer in prefill, the fused paged
+   step in decode, mixtral's sliding window too), launches equal to the
+   route counters, then teacher-forced against the kernels' plain
+   versions, the top-k decode gather and lossless capacity dispatch (both
+   runs' routing logged: rows whose own token took other experts counted,
+   at most a quarter, the rest held to the chain bound; a first flip at a
+   clear router gap fails), capacity 1.25's dropped
+   fraction, one profiled step against the weights' read floor; encdec --
+   seamless-m4t-medium whole: the encoder on flash non-causal, the
+   decoder's self-attention on flash and the fused paged step, its
+   cross-attention on the attend-only paged kernel at ``src_len`` (the
+   cross cache bitwise unchanged), against the ref route.  Each reports
+   its resident bytes at the start and its peak.
 
 The line before the last two gives each kernel's launches on the main
 paths, its largest error against its plain version at their shapes, and
@@ -168,8 +184,10 @@ from repro_torch.kernels.paged_attention.ref import (  # noqa: E402
 )
 from repro_torch.launch import serve as launcher  # noqa: E402
 from repro_torch.models import layers as L  # noqa: E402
+from repro_torch.models import moe as M  # noqa: E402
 from repro_torch.models import transformer as T  # noqa: E402
 from repro_torch.models.model import build_model  # noqa: E402
+from repro_torch.models.moe_dispatch import dropped_fraction  # noqa: E402
 from repro_torch.serving.api import ServeRequest  # noqa: E402
 from repro_torch.serving.demo import build_demo_zoo  # noqa: E402
 from repro_torch.serving.engine import (  # noqa: E402
@@ -1662,8 +1680,9 @@ CROSS_B, CROSS_S, CROSS_POINTS = 4, 128, ((1, 1), (2, 2))
 
 
 def reset_routes() -> None:
-    for k in T.DECODE_ROUTES:
-        T.DECODE_ROUTES[k] = 0
+    for routes in (T.PREFILL_ROUTES, T.DECODE_ROUTES):
+        for k in routes:
+            routes[k] = 0
 
 
 def settle() -> int:
@@ -1688,15 +1707,20 @@ def api_prompts(cfg, B, S, lens, seed):
 
 
 def api_run(model, params, tokens, lens, max_len, steps, attn_impl,
-            forced=None):
+            forced=None, frames=None, src_len=None):
     """Prefill, then ``steps`` decode steps through the Model API; greedy,
-    or teacher-forced on ``forced`` (B, steps + 1).  Returns (tokens
-    (B, steps + 1), fp32 logits (steps + 1, B, V), prefill s, step s)."""
+    or teacher-forced on ``forced`` (B, steps + 1); ``frames`` and
+    ``src_len`` go to the encoder-decoder's prefill and decode.  Returns
+    (tokens (B, steps + 1), fp32 logits (steps + 1, B, V), prefill s, step
+    s)."""
+    batch = {"tokens": tokens, "prompt_lens": lens}
+    if frames is not None:
+        batch["frames"] = frames
+    extra = {} if src_len is None else {"src_len": src_len}
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    logits, cache, _ = model.prefill(
-        params, {"tokens": tokens, "prompt_lens": lens}, max_len=max_len,
-        attn_impl=attn_impl)
+    logits, cache, _ = model.prefill(params, batch, max_len=max_len,
+                                     attn_impl=attn_impl)
     nxt = logits.argmax(-1) if forced is None else forced[:, 0]
     torch.cuda.synchronize()
     prefill_s = time.perf_counter() - t0
@@ -1705,7 +1729,7 @@ def api_run(model, params, tokens, lens, max_len, steps, attn_impl,
         t1 = time.perf_counter()
         logits, cache = model.decode_step(
             params, cache, {"tokens": nxt[:, None].to(torch.int32),
-                            "kv_len": lens + j}, attn_impl=attn_impl)
+                            "kv_len": lens + j, **extra}, attn_impl=attn_impl)
         nxt = logits.argmax(-1) if forced is None else forced[:, j + 1]
         torch.cuda.synchronize()
         step_s.append(time.perf_counter() - t1)
@@ -1720,22 +1744,25 @@ def top2_margin(logits):
     return top2[..., 0] - top2[..., 1]
 
 
-def hold_logits(got, want, what):
+def hold_logits(got, want, what, keep=None):
     """A whole bf16 chain against the same chain on the kernels' plain
     versions, teacher-forced on the same tokens: every logit within
     ``API_CHAIN_BOUND`` times the per-hop bound (2e-2 + 2e-2 |x| + one
     bf16 ulp at the row's largest |logit|), and greedy tokens equal where
     ``want``'s top-2 gap exceeds 0.1 (each kernel is held elementwise at
-    these shapes in the kernels phase).  Returns the logits' largest error
-    per step, their worst ratio to the per-hop bound and the tokens
-    compared."""
+    these shapes in the kernels phase); only the rows (step, sequence)
+    ``keep`` marks, if given.  Returns the logits' largest error per step,
+    their worst ratio to the per-hop bound and the tokens compared."""
     mag = want.abs().amax(dim=-1, keepdim=True)
     _, e = torch.frexp(mag)
     bound = 2e-2 + 2e-2 * want.abs() + torch.ldexp(torch.ones_like(mag),
                                                    e - 8)
-    err = (got - want).abs()
+    if keep is None:
+        keep = torch.ones(want.shape[:-1], dtype=torch.bool,
+                          device=want.device)
+    err = (got - want).abs() * keep[..., None]
     worst = float((err / bound).max())
-    clear = top2_margin(want) > API_MARGIN
+    clear = (top2_margin(want) > API_MARGIN) & keep
     flips = int((got.argmax(-1) != want.argmax(-1))[clear].sum())
     if not worst <= API_CHAIN_BOUND or flips:
         raise RuntimeError(f"{what}: kernel route against ref: logits at "
@@ -2032,6 +2059,354 @@ def cross_size_phase(cfg_a, params_a, smi):
     return launches, row
 
 
+# ---------------------------------------------------------------------------
+# phase 9: the MoE family and the encoder-decoder on the Model API
+# ---------------------------------------------------------------------------
+
+# moe_dbrx / moe_mixtral: published widths, depth cut to 2 layers (the
+# weights in fp32 and their bf16 casts: ~45 and ~32 GB); B = 4 prompts
+# padded to S, a cache of S + 32, 32 greedy decode steps
+MOE_B, MOE_GEN = 4, 32
+MOE_RUNS = {  # model: (padded S, prompt lengths drawn from, numpy seed)
+    "dbrx-132b": (256, (64, 256), 15),
+    "mixtral-8x22b": (512, (128, 512), 16),
+}
+# a router-logit gap (the k-th against the (k+1)-th expert's logit) under
+# which two bf16 runs of the same tokens may take different experts: a few
+# bf16 ulps of logits of size 1-3.  The rows (a step's logits of one
+# sequence) whose own token routed under it are counted; the rows whose own
+# token took other experts in some layer differ by a whole expert, not by
+# rounding, and are not held
+ROUTE_EPS = 0.05
+# at most this share of a comparison's rows may go unheld (the CPU test's
+# cap on its rows at an unclear gap)
+MAX_UNHELD_SHARE = 0.25
+MOE_PROFILE_STEPS = 2
+# encdec: seamless-m4t-medium whole (12 + 12 layers), frames 0.1 N(0, 1)
+# of (4, 256, 1024), target prompts of 16-64 tokens padded to 64, a cache
+# of 96, 32 greedy steps; src_len below S_src for two rows
+ENC_B, ENC_SRC, ENC_S, ENC_MAX, ENC_GEN = 4, 256, 64, 96, 32
+ENC_PROMPTS, ENC_SRC_LEN, ENC_SEED = (16, 64), (256, 256, 200, 137), 17
+ENCDEC_MODEL = "seamless-m4t-medium"
+
+
+def logged_run(*args, **kw):
+    """``api_run`` with ``moe.margin_log`` on: returns (its logits, its
+    decode step walls, the routing of every MoE layer call in call
+    order)."""
+    M.margin_log = []
+    try:
+        _, logits, _, step_s = api_run(*args, **kw)
+        return logits, step_s, M.margin_log
+    finally:
+        M.margin_log = None
+
+
+def routing_rows(got_log, want_log, lens, n_layers: int):
+    """Which logits rows two runs of the same tokens hold to rounding: per
+    call group (the prefill, then each decode step), the rows whose own
+    token (the last prompt token, then the step's) took the same experts in
+    both runs in every layer.  Two sound runs take other experts only where
+    the router logits nearly tie, so this raises where a token first took
+    other experts (it had routed the same in every earlier layer of the
+    call) at a gap of ``ROUTE_EPS`` or more in ``want``; once a token has
+    flipped it differs by a whole expert, and its later layers may flip at
+    any gap.  Returns (keep (calls, B) bool, a report: the routing flips
+    over all tokens and layers, the largest gap of a first flip and of any
+    flip, the smallest gap, the rows whose own token flipped, and the rows
+    whose own token routed at a gap under ``ROUTE_EPS`` in ``want``)."""
+    B = lens.shape[0]
+    rows = torch.arange(B, device=lens.device)
+    last = lens.long() - 1
+    flips, tokens, flip_gap, first_gap = 0, 0, 0.0, 0.0
+    min_gap = float("inf")
+    own_flip, own_low = [], []
+    for i in range(0, len(want_log), n_layers):
+        flipped = torch.zeros(B, dtype=torch.bool, device=lens.device)
+        low = torch.zeros_like(flipped)
+        before = None  # the call's tokens that flipped in an earlier layer
+        for a, b in zip(got_log[i:i + n_layers], want_log[i:i + n_layers]):
+            diff = (a["experts"] != b["experts"]).any(-1)  # (B, S)
+            gap = b["margin"]
+            tokens += gap.numel()
+            flips += int(diff.sum())
+            first = diff if before is None else diff & ~before
+            if diff.any():
+                flip_gap = max(flip_gap, float(gap[diff].max()))
+            if first.any():
+                first_gap = max(first_gap, float(gap[first].max()))
+            before = diff if before is None else before | diff
+            min_gap = min(min_gap, float(gap.min()))
+            own = (lambda t: t[rows, last]) if i == 0 else (lambda t: t[:, 0])
+            flipped |= own(diff)
+            low |= own(gap < ROUTE_EPS)
+        own_flip.append(flipped)
+        own_low.append(low)
+    if first_gap >= ROUTE_EPS:
+        raise RuntimeError(f"a token took other experts at a router gap of "
+                           f"{first_gap} (two sound runs differ only under "
+                           f"{ROUTE_EPS})")
+    keep = ~torch.stack(own_flip)
+    return keep, {"route_eps": ROUTE_EPS, "token_layers": tokens,
+                  "routing_flips": flips,
+                  "largest_gap_first_flip": first_gap,
+                  "largest_gap_flipped": flip_gap, "smallest_gap": min_gap,
+                  "rows_own_token_flipped": int((~keep).sum()),
+                  "rows_own_gap_under_eps": int(torch.stack(own_low).sum()),
+                  "rows": keep.numel()}
+
+
+def hold_routed(got, want, got_log, want_log, lens, n_layers, what):
+    """``hold_logits`` on the rows ``routing_rows`` keeps, failing where
+    more than ``MAX_UNHELD_SHARE`` of the rows go unheld or no token is
+    compared at a clear margin."""
+    keep, routing = routing_rows(got_log, want_log, lens, n_layers)
+    unheld = routing["rows_own_token_flipped"]
+    if unheld > MAX_UNHELD_SHARE * keep.numel():
+        raise RuntimeError(f"{what}: {unheld} of {keep.numel()} rows' own "
+                           "tokens took other experts")
+    held = hold_logits(got, want, what, keep)
+    if not held["tokens_compared_at_clear_margin"]:
+        raise RuntimeError(f"{what}: no token compared at a clear margin")
+    return dict(held, routing=routing)
+
+
+def decode_floor(params, cfg):
+    """(bytes, ms): the weights one dense-scan decode step must read once
+    -- every layer's weights (bf16; the norms and the router fp32) and the
+    bf16 lm_head -- over the HBM bandwidth (the KV cache, the embedding
+    rows and the activations are under 0.1% of it here)."""
+    nbytes = sum(t.numel() * (4 if k in M.FP32_PARAMS else 2)
+                 for k, t in params["layers"].items())
+    nbytes += params["lm_head"].numel() * 2
+    return nbytes, nbytes / HBM_BW * 1e3
+
+
+def profile_decode(model, params, tokens, lens, max_len, nxt, frames=None,
+                   src_len=None):
+    """``MOE_PROFILE_STEPS`` steady decode steps under ``torch.profiler``
+    (``frames`` and ``src_len`` as in ``api_run``): (device ms a step,
+    launches a step, paged ms a step)."""
+    batch = {"tokens": tokens, "prompt_lens": lens}
+    if frames is not None:
+        batch["frames"] = frames
+    extra = {} if src_len is None else {"src_len": src_len}
+    _, cache, _ = model.prefill(params, batch, max_len=max_len)
+
+    def steps():
+        return [model.decode_step(params, cache, {
+            "tokens": nxt[:, None].to(torch.int32), "kv_len": lens + j,
+            **extra})[0] for j in range(MOE_PROFILE_STEPS)]
+
+    by_kernel, n = profiled(steps)
+    del cache
+    return (sum(us for us, _, _ in by_kernel) / 1e3 / n,
+            sum(c for _, c, _ in by_kernel) / n,
+            sum(us for us, _, k in by_kernel if "paged_attention" in k)
+            / 1e3 / n)
+
+
+def check_api_launches(what, launches, routes, want_launches, want_routes):
+    """Launches equal to the wanted counts and the route counters equal to
+    theirs (every other route 0)."""
+    got = {k: v for k, v in routes.items() if v}
+    if launches != want_launches or got != want_routes:
+        raise RuntimeError(f"{what}: launches {launches}, routes {got}; "
+                           f"want {want_launches}, {want_routes}")
+
+
+def moe_phase(name, smi):
+    """``build_model(name)`` at its published widths, depth cut to 2, random
+    weights from seed 0 on the card: prefill 4 padded prompts, then 32
+    greedy decode steps on the dense expert scan; flash once per layer in
+    prefill; decode through the fused paged step (mixtral's sliding window
+    too: its ring buffer holds the whole cache here).  Then, on the same
+    weights and teacher-forced on the same tokens: the ``ref`` route (held
+    to the chain bound), the top-k decode gather and lossless capacity
+    dispatch against the scan (``hold_routed``: rows whose own token took
+    other experts counted, not held, failing past a quarter of the rows or
+    at a first flip at a clear gap; rows at a gap under ``ROUTE_EPS``
+    counted).  Returns (launches, row)."""
+    resident = settle()
+    cfg = cut_config(name)
+    S, prompt_range, seed = MOE_RUNS[name]
+    max_len = S + MOE_GEN
+    torch.cuda.reset_peak_memory_stats()
+    model = build_model(cfg)
+    params = init_params(cfg, 0)
+    tokens, lens = api_prompts(cfg, MOE_B, S, prompt_range, seed)
+    api_run(model, params, tokens, lens, max_len, 1, "auto")  # casts, warm-up
+    reset_launches()
+    reset_routes()
+    got_tok, got, prefill_s, step_s = api_run(model, params, tokens, lens,
+                                              max_len, MOE_GEN, "auto")
+    launches = read_launches()
+    routes = {**{f"prefill_{k}": v for k, v in T.PREFILL_ROUTES.items()},
+              **T.DECODE_ROUTES}
+    L_ = cfg.num_layers
+    check_api_launches(name, launches, routes, {
+        "paged_attention": L_ * MOE_GEN, "flash_attention": L_,
+        "batched_lora": 0}, {"prefill_flash": L_, "paged": L_ * MOE_GEN})
+    if not torch.isfinite(got).all() or got.shape != (
+            MOE_GEN + 1, MOE_B, cfg.vocab_size):
+        raise RuntimeError(f"{name}: logits {tuple(got.shape)} not finite")
+    # the routing of the kernel run, and the ref route's, teacher-forced
+    scan, _, scan_log = logged_run(model, params, tokens, lens, max_len,
+                                   MOE_GEN, "auto", forced=got_tok)
+    want, _, want_log = logged_run(model, params, tokens, lens, max_len,
+                                   MOE_GEN, "ref", forced=got_tok)
+    vs_ref = hold_routed(got, want, scan_log, want_log, lens, L_,
+                         f"{name} vs ref")
+    # the top-k decode gather against the dense scan
+    gmodel = build_model(cfg.replace(moe_decode_gather=True))
+    gathered, gather_step_s, gather_log = logged_run(
+        gmodel, params, tokens, lens, max_len, MOE_GEN, "auto",
+        forced=got_tok)
+    vs_gather = dict(hold_routed(gathered, scan, gather_log, scan_log,
+                                 lens, L_, f"{name} gather"),
+                     decode_step_wall_p50_s=float(np.percentile(
+                         gather_step_s, 50)))
+    # lossless capacity dispatch (E / k) against the scan
+    E, k = cfg.num_experts, cfg.num_experts_per_tok
+    dmodel = build_model(cfg.replace(moe_impl="dispatch",
+                                     capacity_factor=E / k))
+    dispatched, _, d_log = logged_run(dmodel, params, tokens, lens, max_len,
+                                      MOE_GEN, "auto", forced=got_tok)
+    vs_dispatch = hold_routed(dispatched, scan, d_log, scan_log, lens, L_,
+                              f"{name} dispatch")
+    # the fraction capacity 1.25 would drop, per layer, of the scan's prefill
+    lossy = cfg.replace(capacity_factor=1.25)
+    dropped = []
+    for entry in scan_log[:L_]:
+        gates = torch.zeros(entry["experts"].shape[:-1] + (E,),
+                            device=DEVICE).scatter_(-1, entry["experts"], 1.0)
+        dropped.append(float(dropped_fraction(gates, lossy)))
+        if float(dropped_fraction(gates, cfg.replace(
+                capacity_factor=E / k))) != 0.0:
+            raise RuntimeError(f"{name}: capacity E/k dropped tokens")
+    device_ms, per_step, paged_ms = profile_decode(
+        model, params, tokens, lens, max_len, got_tok[:, 0])
+    floor_bytes, floor_ms = decode_floor(params, cfg)
+    peak = torch.cuda.max_memory_allocated()
+    full = get_config(name)
+    prompt_tokens = int(lens.sum())
+    row = {"phase": f"moe_{name.split('-')[0]}", "model": cfg.name,
+           "layers": L_, "cut": f"depth {full.num_layers} -> {L_} layers",
+           "d_model": cfg.d_model,
+           "heads": [cfg.num_heads, cfg.num_kv_heads,
+                     cfg.resolved_head_dim], "d_ff": cfg.d_ff,
+           "experts": [E, k], "vocab": cfg.vocab_size,
+           "sliding_window": cfg.sliding_window,
+           "params": sum(t.numel() for t in tree_leaves(params)),
+           "batch": MOE_B, "padded_S": S, "max_len": max_len,
+           "prompt_lens": lens.cpu().tolist(), "decode_steps": MOE_GEN,
+           "launches": launches, "routes": {k_: v for k_, v in routes.items()
+                                            if v},
+           "prefill_ms": prefill_s * 1e3,
+           "prefill_tok_per_s": prompt_tokens / prefill_s,
+           "decode_tok_per_s": MOE_B * MOE_GEN / sum(step_s),
+           "decode_step_wall_p50_s": float(np.percentile(step_s, 50)),
+           "decode_step_wall_p95_s": float(np.percentile(step_s, 95)),
+           "decode_profile": {
+               "steps": MOE_PROFILE_STEPS, "device_ms_per_step": device_ms,
+               "kernel_launches_per_step": per_step,
+               "paged_ms_per_step": paged_ms,
+               "weight_bytes_per_step": floor_bytes,
+               "floor_ms_per_step": floor_ms},
+           "vs_ref": vs_ref, "gather_vs_scan": vs_gather,
+           "dispatch_lossless_vs_scan": vs_dispatch,
+           "dropped_fraction_cf_1.25_per_layer": dropped,
+           "max_memory_allocated_bytes": peak,
+           "resident_bytes_at_start": resident, "card": smi}
+    emit(row)
+    return launches, row
+
+
+def encdec_phase(smi):
+    """``build_model("seamless-m4t-medium")`` whole, random weights from seed
+    0 on the card: encode 4 x 256 frames (flash, non-causal, once per
+    encoder layer), prefill the decoder on 4 padded prompts (flash, causal,
+    once per layer; cross-attention on its plain route), then 32 greedy
+    decode steps (a fused paged step and an attend-only paged launch over
+    the cross cache per layer, ``src_len`` below 256 for two rows).  Held
+    against the ``ref`` route; the cross cache bitwise unchanged by decode.
+    Returns (launches, row)."""
+    resident = settle()
+    cfg = get_config(ENCDEC_MODEL)
+    torch.cuda.reset_peak_memory_stats()
+    model = build_model(cfg)
+    params = init_params(cfg, 0)
+    tokens, lens = api_prompts(cfg, ENC_B, ENC_S, ENC_PROMPTS, ENC_SEED)
+    frames = torch.from_numpy((0.1 * np.random.RandomState(ENC_SEED + 1)
+                               .standard_normal((ENC_B, ENC_SRC, cfg.d_model)))
+                              .astype(np.float32)).to(DEVICE)
+    src_len = torch.tensor(ENC_SRC_LEN, dtype=torch.int32, device=DEVICE)
+    io = dict(frames=frames, src_len=src_len)
+    api_run(model, params, tokens, lens, ENC_MAX, 1, "auto", **io)
+    reset_launches()
+    reset_routes()
+    got_tok, got, prefill_s, step_s = api_run(model, params, tokens, lens,
+                                              ENC_MAX, ENC_GEN, "auto", **io)
+    launches = read_launches()
+    routes = {**{f"prefill_{k}": v for k, v in T.PREFILL_ROUTES.items()},
+              **T.DECODE_ROUTES}
+    Le, Ld = cfg.encoder_layers, cfg.decoder_layers
+    check_api_launches("encdec", launches, routes, {
+        "paged_attention": 2 * Ld * ENC_GEN, "flash_attention": Le + Ld,
+        "batched_lora": 0},
+        {"prefill_flash": Le + Ld, "prefill_cross_plain": Ld,
+         "paged": Ld * ENC_GEN, "cross_paged": Ld * ENC_GEN})
+    if not torch.isfinite(got).all() or got.shape != (
+            ENC_GEN + 1, ENC_B, cfg.vocab_size):
+        raise RuntimeError(f"encdec: logits {tuple(got.shape)} not finite")
+    _, want, _, _ = api_run(model, params, tokens, lens, ENC_MAX, ENC_GEN,
+                            "ref", forced=got_tok, **io)
+    vs_ref = hold_logits(got, want, "encdec")
+    # decode only reads the cross cache
+    _, cache, _ = model.prefill(params, {"tokens": tokens,
+                                         "prompt_lens": lens,
+                                         "frames": frames}, max_len=ENC_MAX)
+    xk, xv = cache["xk"].clone(), cache["xv"].clone()
+    for j in range(ENC_GEN):
+        model.decode_step(params, cache, {
+            "tokens": got_tok[:, j, None].to(torch.int32),
+            "kv_len": lens + j, "src_len": src_len})
+    torch.cuda.synchronize()
+    if not (torch.equal(cache["xk"], xk) and torch.equal(cache["xv"], xv)):
+        raise RuntimeError("encdec: decode wrote the cross cache")
+    del cache, xk, xv
+    device_ms, per_step, paged_ms = profile_decode(
+        model, params, tokens, lens, ENC_MAX, got_tok[:, 0], frames=frames,
+        src_len=src_len)
+    peak = torch.cuda.max_memory_allocated()
+    row = {"phase": "encdec", "model": cfg.name,
+           "layers": [Le, Ld], "d_model": cfg.d_model,
+           "heads": [cfg.num_heads, cfg.num_kv_heads,
+                     cfg.resolved_head_dim], "d_ff": cfg.d_ff,
+           "vocab": cfg.vocab_size,
+           "params": sum(t.numel() for t in tree_leaves(params)),
+           "batch": ENC_B, "frames": [ENC_B, ENC_SRC, cfg.d_model],
+           "src_len": list(ENC_SRC_LEN), "padded_S": ENC_S,
+           "max_len": ENC_MAX, "prompt_lens": lens.cpu().tolist(),
+           "decode_steps": ENC_GEN, "launches": launches,
+           "routes": {k: v for k, v in routes.items() if v},
+           "prefill_ms": prefill_s * 1e3,
+           "prefill_tok_per_s": int(lens.sum()) / prefill_s,
+           "prefill_frames_per_s": ENC_B * ENC_SRC / prefill_s,
+           "decode_tok_per_s": ENC_B * ENC_GEN / sum(step_s),
+           "decode_step_wall_p50_s": float(np.percentile(step_s, 50)),
+           "decode_step_wall_p95_s": float(np.percentile(step_s, 95)),
+           "decode_profile": {
+               "steps": MOE_PROFILE_STEPS, "device_ms_per_step": device_ms,
+               "kernel_launches_per_step": per_step,
+               "paged_ms_per_step": paged_ms},
+           "vs_ref": vs_ref, "cross_cache_bitwise_unchanged": True,
+           "max_memory_allocated_bytes": peak,
+           "resident_bytes_at_start": resident, "card": smi}
+    emit(row)
+    return launches, row
+
+
 def one_page_case(name, B, Hq, KVH, hd, S, lens, flush):
     """Paged attention as the Model API's decode launches it: a stacked
     cache's layer slice (B, S, KVH, hd) as B pages of S tokens, table
@@ -2101,7 +2476,8 @@ def api_cases(cfg):
     """Flash and paged cases at the shapes the Model API phases give the
     kernels: model_api's prefill (B, 512) and its decode at the prompts
     plus half the generation in a cache of 576; model_api_int8's prefill;
-    cross_size's two models' prefills of 4 x 128."""
+    cross_size's two models' prefills of 4 x 128; the MoE and
+    encoder-decoder phases' prefills and decodes."""
     a, b = cut_config(INT8_MODEL), cut_config(CROSS_B_MODEL)
 
     def heads(c):
@@ -2118,9 +2494,34 @@ def api_cases(cfg):
                                                 b.resolved_head_dim, True),
     }
     _, lens = api_prompts(cfg, API_B, API_S, API_PROMPTS, API_SEED)
-    paged = (API_B, H, KVH, hd, API_MAX,
-             [int(n) + API_GEN // 2 for n in lens.cpu().numpy()])
-    return flash, {f"main_model_api_page{API_MAX}": paged}
+    paged = {f"main_model_api_page{API_MAX}": (
+        API_B, H, KVH, hd, API_MAX,
+        [int(n) + API_GEN // 2 for n in lens.cpu().numpy()])}
+    # moe_dbrx, moe_mixtral: prefill (B, S); decode at the prompts plus
+    # half the generation in a cache of S + 32
+    for name, (S, prompt_range, seed) in MOE_RUNS.items():
+        c, short = cut_config(name), name.split("-")[0]
+        flash[f"main_{short}_B{MOE_B}_S{S}"] = (
+            MOE_B, *heads(c), S, c.resolved_head_dim, True)
+        _, lens = api_prompts(c, MOE_B, S, prompt_range, seed)
+        paged[f"main_{short}_page{S + MOE_GEN}"] = (
+            MOE_B, *heads(c), c.resolved_head_dim, S + MOE_GEN,
+            [int(n) + MOE_GEN // 2 for n in lens.cpu().numpy()])
+    # encdec: the encoder (non-causal) and the decoder's prefill; decode's
+    # self-attention (fused) in a cache of 96 and its cross-attention
+    # (attend only) over 256 frames at src_len
+    e = get_config(ENCDEC_MODEL)
+    flash[f"main_encdec_enc_B{ENC_B}_S{ENC_SRC}"] = (
+        ENC_B, *heads(e), ENC_SRC, e.resolved_head_dim, False)
+    flash[f"main_encdec_dec_B{ENC_B}_S{ENC_S}"] = (
+        ENC_B, *heads(e), ENC_S, e.resolved_head_dim, True)
+    _, lens = api_prompts(e, ENC_B, ENC_S, ENC_PROMPTS, ENC_SEED)
+    paged[f"main_encdec_page{ENC_MAX}"] = (
+        ENC_B, *heads(e), e.resolved_head_dim, ENC_MAX,
+        [int(n) + ENC_GEN // 2 for n in lens.cpu().numpy()])
+    paged[f"main_encdec_cross_page{ENC_SRC}"] = (
+        ENC_B, *heads(e), e.resolved_head_dim, ENC_SRC, list(ENC_SRC_LEN))
+    return flash, paged
 
 
 def main():
@@ -2243,13 +2644,23 @@ def main():
     cross_launches, cross = cross_size_phase(cfg_a, params_a, smi)
     del params_a
     phase_s["cross_size"] = time.perf_counter() - t0
+    moe_launches, moe_rows = {}, {}
+    for name in MOE_RUNS:
+        t0 = time.perf_counter()
+        phase = f"moe_{name.split('-')[0]}"
+        moe_launches[phase], moe_rows[phase] = moe_phase(name, smi)
+        phase_s[phase] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    enc_launches, enc = encdec_phase(smi)
+    phase_s["encdec"] = time.perf_counter() - t0
 
     # each main-path run: counts set to 0 just before, read just after
     by_path = {"engine": eng_launches, **{
         f"long_prefill_{k}": v for k, v in long_launches.items()},
         **spec_launches, "adaptive": adaptive_launches,
         "launch": launch_launches, "model_api": api_launches,
-        "model_api_int8": int8_launches, "cross_size": cross_launches}
+        "model_api_int8": int8_launches, "cross_size": cross_launches,
+        **moe_launches, "encdec": enc_launches}
     # the shape each kernel's ms stands for: paged attention's decode
     # batch; flash's costliest prefill call (the long path's largest
     # group); LoRA's decode q projection at the engine's app-lora batch,
@@ -2288,6 +2699,10 @@ def main():
             "library_ms": bf16["library_ms"]}
         if name == "paged_attention":
             entry["attend_only_ms"] = bf16["kernel_ms"]
+            # the encoder-decoder's cross-attention launches attend only
+            entry["main_path_attend_only_ms"] = {
+                x["case"]: x["kernel_ms"] for x in mine
+                if x["dtype"] == "torch.bfloat16"}
         line.append(entry)
     emit({"phase": "done", "total_s": time.perf_counter() - t_start,
           "kernel_build_s": build_s, "zoo_build_s": zoo_s,
@@ -2298,7 +2713,10 @@ def main():
           "launch_tok_per_s": launch["real"]["tokens_per_s"],
           "model_api_decode_tok_per_s": api["decode_tok_per_s"],
           "model_api_int8_decode_tok_per_s": int8["decode_tok_per_s"],
-          "cross_size_peak_bytes": cross["max_memory_allocated_bytes"]})
+          "cross_size_peak_bytes": cross["max_memory_allocated_bytes"],
+          **{f"{k}_decode_tok_per_s": v["decode_tok_per_s"]
+             for k, v in moe_rows.items()},
+          "encdec_decode_tok_per_s": enc["decode_tok_per_s"]})
     emit({"kernels": line})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

@@ -51,12 +51,18 @@ def resolve_dtype(dtype) -> torch.dtype:
 def dense_init(gen: torch.Generator, shape, in_axis_size: Optional[int] = None,
                device=None) -> torch.Tensor:
     """Truncated-normal (±2σ) fan-in init, fp32 params."""
-    fan_in = in_axis_size if in_axis_size is not None else shape[0]
-    std = 1.0 / math.sqrt(max(fan_in, 1))
     out = torch.empty(shape, dtype=torch.float32,
                       device=device if device is not None else gen.device)
+    return dense_fill(gen, out,
+                      in_axis_size if in_axis_size is not None else shape[0])
+
+
+def dense_fill(gen: torch.Generator, out: torch.Tensor,
+               fan_in: int) -> torch.Tensor:
+    """``dense_init``'s draw into ``out`` in place (a stacked tensor's
+    layer, filled without a per-layer copy)."""
     torch.nn.init.trunc_normal_(out, 0.0, 1.0, -2.0, 2.0, generator=gen)
-    return out.mul_(std)
+    return out.mul_(1.0 / math.sqrt(max(fan_in, 1)))
 
 
 # source tensor -> {dtype: its cast}: one cast per tensor, whoever reads it;
@@ -182,6 +188,22 @@ def causal_attention(q, k, v, *, chunk: int, window: int = 0):
             for i in range(0, Sp, chunk)]
     out = torch.cat(outs, dim=1).reshape(B, Sp, Hq, hd)
     return out[:, :S]
+
+
+def bidir_attention(q, k, v, chunk: int):
+    """Non-causal full attention, query-chunked (the reference's
+    ``encdec.bidir_attention``).  q: (B, Sq, H, hd); k, v: (B, Sk, H, hd),
+    Sk may differ from Sq (cross-attention).  Returns (B, Sq, H, hd)."""
+    B, S, H, hd = q.shape
+    chunk = min(chunk, S)
+    outs = []
+    for i in range(0, S, chunk):
+        # fp32 operands: the reference contracts with an fp32 accumulator
+        s = torch.einsum("bchd,bshd->bhcs", q[:, i:i + chunk].float(),
+                         k.float()) / math.sqrt(hd)
+        pr = torch.softmax(s, dim=-1)
+        outs.append(torch.einsum("bhcs,bshd->bchd", pr.to(v.dtype), v))
+    return torch.cat(outs, dim=1)
 
 
 def decode_attention(q, k_cache, v_cache, kv_len, *, window: int = 0,

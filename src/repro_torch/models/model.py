@@ -1,5 +1,6 @@
 """Unified Model API — the port of ``repro.models.model`` for the dense
-family (llama/qwen, qwen2-vl's backbone).
+family (llama/qwen, qwen2-vl's backbone), the MoE family (mixtral, dbrx)
+and the encoder-decoder (seamless-m4t).
 
 ``build_model(cfg)`` returns a ``Model`` with:
   - init(gen, device=None) -> params (fp32, drawn from a torch generator)
@@ -11,7 +12,7 @@ family (llama/qwen, qwen2-vl's backbone).
 
 Both entry points take ``attn_impl`` (``models.transformer``): on a CUDA
 tensor, prefill runs the flash-attention kernel and decode the
-paged-attention kernel.  The other families and training raise
+paged-attention kernel.  The hybrid and SSM families and training raise
 ``NotImplementedError`` naming the ``ROADMAP.md`` item that ports them; the
 reference's sharding argument is not taken (the mesh code comes last).
 
@@ -32,13 +33,13 @@ from repro_torch.models import layers as L
 
 # family -> the ROADMAP.md section 1 item that ports it
 NOT_PORTED = {
-    "moe": "ROADMAP.md §1 item 1 (MoE: models/moe.py, models/moe_dispatch.py)",
-    "hybrid": "ROADMAP.md §1 item 2 (hybrid: models/mamba2.py)",
-    "ssm": "ROADMAP.md §1 item 3 (SSM: models/xlstm.py)",
-    "encdec": "ROADMAP.md §1 item 4 (enc-dec: models/encdec.py)",
+    "hybrid": "ROADMAP.md §1 item 1 (hybrid: models/mamba2.py, after flash "
+              "and paged attention at head dim 80)",
+    "ssm": "ROADMAP.md §1 item 2 (SSM: models/xlstm.py)",
 }
-TRAINING_ITEM = ("ROADMAP.md §1 item 5 (training: dense_train_loss, "
-                 "cross_entropy, training/, checkpoint/)")
+TRAINING_ITEM = ("ROADMAP.md §1 item 3 (training: dense_train_loss, "
+                 "moe_train_loss, encdec_train_loss, cross_entropy, "
+                 "training/, checkpoint/)")
 
 
 class Model:
@@ -80,7 +81,10 @@ class Model:
 
         i32 = torch.int32
         if shape.kind == "decode":  # one new token against a cache of S
-            return {"tokens": sd((B, 1), i32), "kv_len": sd((B,), i32)}
+            batch = {"tokens": sd((B, 1), i32), "kv_len": sd((B,), i32)}
+            if cfg.family == "encdec":
+                batch["src_len"] = sd((B,), i32)
+            return batch
         batch = {"tokens": sd((B, S), i32)}
         batch["labels" if shape.kind == "train" else "prompt_lens"] = (
             sd((B, S), i32) if shape.kind == "train" else sd((B,), i32))
@@ -88,14 +92,32 @@ class Model:
             batch["visual_embeds"] = sd((B, cfg.num_visual_tokens,
                                          cfg.d_model), self.compute_dtype)
             batch["mrope_positions"] = sd((B, S, 3), i32)
+        if cfg.family == "encdec":  # source frames as long as the target
+            batch["frames"] = sd((B, S, cfg.d_model), self.compute_dtype)
         return batch
 
     def cache_specs(self, shape: ShapeConfig) -> dict:
         """The decode cache's tensors for this (arch, shape)."""
-        return L.init_kv_cache(self.cfg, self.cfg.num_layers,
-                               shape.global_batch, shape.seq_len,
-                               self.cfg.num_kv_heads,
-                               dtype=self.compute_dtype, device="meta")
+        return cache_struct(self.cfg, shape.global_batch, shape.seq_len,
+                            self.compute_dtype)
+
+
+def cache_struct(cfg: ModelConfig, B: int, S: int,
+                 dtype: torch.dtype = L.COMPUTE_DTYPE) -> dict:
+    """The decode cache's tensors on the ``meta`` device: the stacked KV
+    cache of ``layers.init_kv_cache`` (dense, moe), or the encoder-decoder's
+    ``k``/``v`` (Ld, B, S, H, hd) with the cross-attention ``xk``/``xv``
+    (Ld, B, S, H, hd) (a source as long as the target, as in the
+    reference's specs)."""
+    if cfg.family != "encdec":
+        return L.init_kv_cache(cfg, cfg.num_layers, B, S, cfg.num_kv_heads,
+                               dtype=dtype, device="meta")
+    hd, H, Ld = cfg.resolved_head_dim, cfg.num_heads, cfg.decoder_layers
+    cache = L.init_kv_cache(cfg, Ld, B, S, H, dtype=dtype, device="meta")
+    for name in ("xk", "xv"):
+        cache[name] = torch.empty((Ld, B, S, H, hd), dtype=dtype,
+                                  device="meta")
+    return cache
 
 
 def build_model(cfg: ModelConfig,
@@ -107,6 +129,22 @@ def build_model(cfg: ModelConfig,
             "init": T.init_dense,
             "prefill": T.dense_prefill,
             "decode_step": T.dense_decode_step,
+        }, compute_dtype)
+    if cfg.family == "moe":
+        from repro_torch.models import moe as M
+
+        return Model(cfg, {
+            "init": M.init_moe,
+            "prefill": M.moe_prefill,
+            "decode_step": M.moe_decode_step,
+        }, compute_dtype)
+    if cfg.family == "encdec":
+        from repro_torch.models import encdec as E
+
+        return Model(cfg, {
+            "init": E.init_encdec,
+            "prefill": E.encdec_prefill,
+            "decode_step": E.encdec_decode_step,
         }, compute_dtype)
     if cfg.family in NOT_PORTED:
         raise NotImplementedError(
@@ -154,12 +192,12 @@ def params_from_numpy(cfg: ModelConfig, tree: dict, device) -> dict:
 def cache_from_numpy(cfg: ModelConfig, tree: dict, device,
                      compute_dtype: torch.dtype = L.COMPUTE_DTYPE) -> dict:
     """A reference decode cache (numpy: ``k``/``v`` (L, B, S, KVH, hd) in
-    the compute dtype, or int8 codes with fp32 scales) as tensors on
-    ``device``, after checking its keys, dtypes, layers and heads against
-    this config (B and S are the tree's own).  The tensors never alias the
-    tree's arrays: decode writes them in place."""
+    the compute dtype, or int8 codes with fp32 scales; the encoder-decoder's
+    also ``xk``/``xv``) as tensors on ``device``, after checking its keys,
+    dtypes, layers and heads against this config (B and the lengths are the
+    tree's own).  The tensors never alias the tree's arrays: decode writes
+    them in place."""
     B, S = tree["k"].shape[1:3]
-    want = L.init_kv_cache(cfg, cfg.num_layers, B, S, cfg.num_kv_heads,
-                           dtype=compute_dtype, device="meta")
+    want = cache_struct(cfg, B, S, compute_dtype)
     _check("cache", tree, want, exact_dims=False)
     return to_torch({k: np.array(v) for k, v in tree.items()}, device=device)

@@ -16,14 +16,22 @@ layer's ``(B, S, KVH, hd)`` cache slice seen as a pool of one S-token page
 per sequence (one launch per layer: the token's K/V write and the
 attention).  ``ref`` runs the kernels' plain versions on any device;
 ``auto`` on a CPU tensor runs the reference's plain code.  An int8 cache
-or a sliding window takes the reference's plain route whatever
-``attn_impl`` says: the reference has no kernel for either.
-A shape the kernels do not take raises ``NotImplementedError`` under
-``auto``/``cuda``.
+takes the reference's plain decode route whatever ``attn_impl`` says: the
+reference has no kernel for it.  A sliding window's prefill runs flash
+while the prompt fits the window (the window then masks nothing); its
+decode runs the paged kernel over the ring buffer's slots (the cache holds
+at most the window, and the reference's decode attends over all of its
+``min(kv_len + 1, S)`` written slots, in whatever order the ring left
+them).  A shape the kernels do not take raises ``NotImplementedError``
+under ``auto``/``cuda``.
+
+The MoE family (``models.moe``) and the encoder-decoder's decoder
+(``models.encdec``) reuse these attention pieces and routes as they are.
 """
 from __future__ import annotations
 
-from typing import Optional
+import dataclasses
+from typing import Callable, Optional
 
 import torch
 
@@ -40,12 +48,19 @@ from repro_torch.models.layers import cast_once
 
 ATTN_IMPLS = ("auto", "ref", "cuda")
 
-# attention calls of dense_decode_step by route since the counts were last
-# set to 0, one per layer: ``paged`` (the kernel), ``paged_ref`` (its plain
-# version), ``int8`` and ``window`` (the reference's plain routes the config
-# picks), ``plain`` (the reference's plain code: ``auto`` on a CPU tensor)
-DECODE_ROUTES = {"paged": 0, "paged_ref": 0, "int8": 0, "window": 0,
-                 "plain": 0}
+# decode attention calls by route since the counts were last set to 0, one
+# per layer: ``paged`` (the kernel), ``paged_ref`` (its plain version),
+# ``int8`` (the reference's plain route an int8 cache picks), ``plain`` (the
+# reference's plain code: ``auto`` on a CPU tensor); and the
+# encoder-decoder's cross-attention: ``cross_paged`` (the attend-only
+# kernel), ``cross_paged_ref``, ``cross_plain``
+DECODE_ROUTES = {"paged": 0, "paged_ref": 0, "int8": 0, "plain": 0,
+                 "cross_paged": 0, "cross_paged_ref": 0, "cross_plain": 0}
+# prefill attention calls by route, likewise: ``flash`` (the kernel),
+# ``flash_ref`` (its plain version), ``plain`` (the reference's plain code);
+# ``cross_plain``: the encoder-decoder's cross-attention (queries and keys
+# of different lengths, which no kernel takes: plain on every route)
+PREFILL_ROUTES = {"flash": 0, "flash_ref": 0, "plain": 0, "cross_plain": 0}
 
 # ---------------------------------------------------------------------------
 # init
@@ -135,39 +150,58 @@ def _kernel_impl(x, attn_impl: str) -> Optional[str]:
     return attn_impl
 
 
-def prefill_attention(q, k, v, cfg: ModelConfig, attn_impl: str):
-    """Causal prefill attention over (B, S, H, hd) tensors: the flash
-    kernel (``cuda``) or its plain version (``ref``) on transposed views,
-    or the reference's query-chunked ``layers.causal_attention`` (``auto``
-    on a CPU tensor)."""
+def prefill_route(cfg: ModelConfig, q, attn_impl: str) -> str:
+    """The prefill attention route for q (B, S, H, hd): a key of
+    ``PREFILL_ROUTES``.  A sliding window masks nothing while S fits in it
+    (key j is kept when j > i - W, and i - j < S <= W), so flash computes
+    the reference's function exactly there; past it, and at a head dim the
+    kernel lacks, the kernel routes raise before any launch."""
     impl = _kernel_impl(q, attn_impl)
     if impl is None:
-        return L.causal_attention(q, k, v, chunk=cfg.attn_chunk,
-                                  window=cfg.sliding_window)
-    if cfg.sliding_window:
+        return "plain"
+    S, hd = q.shape[1], q.shape[-1]
+    if cfg.sliding_window and S > cfg.sliding_window:
         raise NotImplementedError(
-            "the flash-attention kernel has no sliding window")
-    hd = q.shape[-1]
+            f"the flash-attention kernel has no sliding window (a prompt of "
+            f"{S} tokens is longer than the window of {cfg.sliding_window})")
     if impl == "cuda" and hd not in fa_kernel.HEAD_DIMS:
         raise NotImplementedError(
             f"the flash-attention kernel has no head dim {hd} (it takes "
             f"{fa_kernel.HEAD_DIMS})")
+    return "flash" if impl == "cuda" else "flash_ref"
+
+
+def prefill_attention(q, k, v, cfg: ModelConfig, attn_impl: str, *,
+                      causal: bool = True):
+    """Prefill self-attention over (B, S, H, hd) tensors: the flash kernel
+    (``cuda``) or its plain version (``ref``) on transposed views, or the
+    reference's query-chunked plain code (``auto`` on a CPU tensor):
+    ``layers.causal_attention``, or ``layers.bidir_attention`` for the
+    encoder's non-causal attention."""
+    route = prefill_route(cfg, q, attn_impl)
+    PREFILL_ROUTES[route] += 1
+    if route == "plain":
+        if not causal:
+            return L.bidir_attention(q, k, v, cfg.attn_chunk)
+        return L.causal_attention(q, k, v, chunk=cfg.attn_chunk,
+                                  window=cfg.sliding_window)
     o = flash_attention(q.transpose(1, 2), k.transpose(1, 2),
-                        v.transpose(1, 2), causal=True, impl=impl)
+                        v.transpose(1, 2), causal=causal,
+                        impl="cuda" if route == "flash" else "ref")
     return o.transpose(1, 2)
 
 
-def decode_route(cfg: ModelConfig, x, attn_impl: str) -> str:
-    """The decode attention route, from the config first (an int8 cache or
-    a sliding window runs the reference's plain route), then from
-    ``attn_impl``: a key of ``DECODE_ROUTES``."""
-    if cfg.kv_cache_dtype == "int8":
+def decode_route(cfg: ModelConfig, x, attn_impl: str, *,
+                 cross: bool = False) -> str:
+    """The decode attention route, a key of ``DECODE_ROUTES``: an int8 cache
+    runs the reference's plain route; otherwise ``attn_impl`` picks the
+    paged kernel, its plain version or the reference's plain code, raising
+    under ``cuda`` where the kernel does not take the config's heads.
+    ``cross``: the encoder-decoder's cross-attention over its source cache
+    (attend only; the ``cross_`` routes)."""
+    if cfg.kv_cache_dtype == "int8" and not cross:
         return "int8"
-    if cfg.sliding_window:
-        return "window"
     impl = _kernel_impl(x, attn_impl)
-    if impl is None:
-        return "plain"
     hd, G = cfg.resolved_head_dim, cfg.num_heads // cfg.num_kv_heads
     if impl == "cuda" and (hd not in pa_kernel.HEAD_DIMS
                            or G > pa_kernel.MAX_GROUP):
@@ -175,7 +209,8 @@ def decode_route(cfg: ModelConfig, x, attn_impl: str) -> str:
             f"the paged-attention kernel has no head dim {hd} with "
             f"{G} query heads per KV head (it takes {pa_kernel.HEAD_DIMS}, "
             f"at most {pa_kernel.MAX_GROUP})")
-    return "paged" if impl == "cuda" else "paged_ref"
+    route = {None: "plain", "cuda": "paged", "ref": "paged_ref"}[impl]
+    return "cross_" + route if cross else route
 
 
 # ---------------------------------------------------------------------------
@@ -183,11 +218,18 @@ def decode_route(cfg: ModelConfig, x, attn_impl: str) -> str:
 # ---------------------------------------------------------------------------
 
 
-def _layer_params(params: dict, i: int, dtype: torch.dtype) -> dict:
-    """Layer ``i``'s parameters for ``dtype`` compute: weights from one
-    cast of each stacked tensor, norm scales in fp32."""
-    return {k: v[i] if k in ("ln1", "ln2") else cast_once(v, dtype)[i]
-            for k, v in params["layers"].items()}
+# the layer parameters read in fp32 whatever the compute dtype: the norm
+# scales (a family adds its own: the MoE router, the cross-attention norm)
+NORMS = ("ln1", "ln2")
+
+
+def _layer_params(params: dict, i: int, dtype: torch.dtype,
+                  key: str = "layers", fp32: tuple = NORMS) -> dict:
+    """Layer ``i`` of the stack ``params[key]`` for ``dtype`` compute:
+    weights from one cast of each stacked tensor, the ``fp32`` keys as they
+    are."""
+    return {k: v[i] if k in fp32 else cast_once(v, dtype)[i]
+            for k, v in params[key].items()}
 
 
 def _embed_tokens(params: dict, cfg: ModelConfig, batch: dict,
@@ -236,13 +278,15 @@ def _out_proj(o, wo):
 
 
 def _attn_layer_full(x, p, cfg: ModelConfig, positions, *,
-                     attn_impl: str = "auto", return_kv: bool = False):
-    """Full-sequence attention sublayer with its residual (prefill)."""
+                     attn_impl: str = "auto", return_kv: bool = False,
+                     causal: bool = True):
+    """Full-sequence self-attention sublayer with its residual (prefill;
+    ``causal=False``: the encoder-decoder's encoder)."""
     h = L.rms_norm(x, p["ln1"], cfg.norm_eps)
     q, k, v = _qkv(h, p, cfg)
     q = L.apply_rope(q, positions, cfg.rope_theta, cfg.mrope_sections)
     k = L.apply_rope(k, positions, cfg.rope_theta, cfg.mrope_sections)
-    o = prefill_attention(q, k, v, cfg, attn_impl)
+    o = prefill_attention(q, k, v, cfg, attn_impl, causal=causal)
     x = x + _out_proj(o, p["wo"])
     if return_kv:
         return x, (k, v)
@@ -259,16 +303,13 @@ def _logits(params: dict, cfg: ModelConfig, h: torch.Tensor) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 
-def dense_prefill(params: dict, cfg: ModelConfig, batch: dict, *,
-                  max_len=None, attn_impl: str = "auto",
-                  compute_dtype: torch.dtype = L.COMPUTE_DTYPE):
-    """Returns (last-prompt-position logits (B, V), cache, prompt_lens (B,)).
-
-    batch: ``tokens`` (B, S), optionally ``prompt_lens`` (B,) (default S),
-    ``visual_embeds`` and ``mrope_positions`` (qwen2-vl).  ``max_len``
-    over-allocates the cache for decode growth; the cache is the stacked
-    ``(L, B, max_len, KVH, hd)`` dict of ``layers.init_kv_cache``.
-    """
+def decoder_prefill(params: dict, cfg: ModelConfig, batch: dict,
+                    mlp: Callable, *, max_len=None, attn_impl: str = "auto",
+                    compute_dtype: torch.dtype = L.COMPUTE_DTYPE,
+                    fp32: tuple = NORMS):
+    """The decoder-only prefill with the feed-forward sublayer ``mlp(x, p,
+    cfg)`` (``_mlp_layer``, or the MoE's ``_moe_mlp``) and the layer
+    parameters ``fp32`` kept in fp32; see ``dense_prefill``."""
     tokens = batch["tokens"]
     B, S = tokens.shape
     dev = params["embed"].device
@@ -279,21 +320,140 @@ def dense_prefill(params: dict, cfg: ModelConfig, batch: dict, *,
         prompt_lens = torch.full((B,), S, dtype=torch.int32, device=dev)
     cache = None
     for i in range(cfg.num_layers):
-        p = _layer_params(params, i, compute_dtype)
+        p = _layer_params(params, i, compute_dtype, fp32=fp32)
         h, (k, v) = _attn_layer_full(h, p, cfg, positions,
                                      attn_impl=attn_impl, return_kv=True)
-        h = _mlp_layer(h, p, cfg)
-        layer = L.finalize_prefill_cache(k, v, cfg, max_len)
-        if cache is None:
-            cache = {n: torch.empty((cfg.num_layers,) + t.shape,
-                                    dtype=t.dtype, device=t.device)
-                     for n, t in layer.items()}
-        for n, t in layer.items():
-            cache[n][i] = t
-    # hidden state at the last prompt position of each sequence
-    idx = torch.clamp(prompt_lens.to(dev).long() - 1, 0, S - 1)
-    h_last = h[torch.arange(B, device=dev), idx]
-    return _logits(params, cfg, h_last), cache, prompt_lens
+        h = mlp(h, p, cfg)
+        cache = _cache_layer(cache, i, cfg.num_layers,
+                             L.finalize_prefill_cache(k, v, cfg, max_len))
+    return _last_logits(params, cfg, h, prompt_lens), cache, prompt_lens
+
+
+def _cache_layer(cache: Optional[dict], i: int, n: int, layer: dict) -> dict:
+    """Store one layer's cache entries at ``i`` of a stacked (n, ...) cache,
+    allocated at the first layer."""
+    if cache is None:
+        cache = {k: torch.empty((n,) + t.shape, dtype=t.dtype,
+                                device=t.device) for k, t in layer.items()}
+    for k, t in layer.items():
+        cache[k][i] = t
+    return cache
+
+
+def _last_logits(params: dict, cfg: ModelConfig, h, prompt_lens):
+    """Logits at the last prompt position of each sequence of h (B, S, D)."""
+    B, S = h.shape[:2]
+    idx = torch.clamp(prompt_lens.to(h.device).long() - 1, 0, S - 1)
+    return _logits(params, cfg, h[torch.arange(B, device=h.device), idx])
+
+
+def dense_prefill(params: dict, cfg: ModelConfig, batch: dict, *,
+                  max_len=None, attn_impl: str = "auto",
+                  compute_dtype: torch.dtype = L.COMPUTE_DTYPE):
+    """Returns (last-prompt-position logits (B, V), cache, prompt_lens (B,)).
+
+    batch: ``tokens`` (B, S), optionally ``prompt_lens`` (B,) (default S),
+    ``visual_embeds`` and ``mrope_positions`` (qwen2-vl).  ``max_len``
+    over-allocates the cache for decode growth; the cache is the stacked
+    ``(L, B, max_len, KVH, hd)`` dict of ``layers.init_kv_cache``.
+    """
+    return decoder_prefill(params, cfg, batch, _mlp_layer, max_len=max_len,
+                           attn_impl=attn_impl, compute_dtype=compute_dtype)
+
+
+@dataclasses.dataclass
+class DecodeAttention:
+    """One decode step's self-attention over a stacked (L, B, S, KVH, hd)
+    cache, fixed before its first layer: the route (``decode_route``), the
+    lengths and, on the paged routes, the one-page-per-sequence tables and
+    whether some row has run out of cache.
+
+    A write at ``kv_len >= S`` is dropped and the token attends over the S
+    cached positions, as in the reference (JAX drops an out-of-bounds
+    scatter); a sliding window's ring buffer writes slot ``kv_len % S``
+    instead.  On the paged routes the step reads ``max(kv_len)`` on the
+    host once to know: when some row has reached S, each layer writes
+    through the plain insert (masked, or the ring's) and launches the
+    attend-only kernel over ``min(kv_len + 1, S)`` positions instead of the
+    fused write-and-attend launch, which writes at ``kv_len``.
+    """
+    cfg: ModelConfig
+    route: str
+    kv_len: torch.Tensor
+    valid: torch.Tensor  # min(kv_len + 1, S)
+    tables: Optional[torch.Tensor] = None
+    overflow: bool = False
+
+    @classmethod
+    def plan(cls, cfg: ModelConfig, x, attn_impl: str, cache: dict,
+             kv_len) -> "DecodeAttention":
+        route = decode_route(cfg, x, attn_impl)
+        S = cache["k"].shape[2]
+        kv_len = kv_len.to(device=x.device, dtype=torch.int32)
+        step = cls(cfg, route, kv_len, torch.clamp(kv_len + 1, max=S))
+        if route in ("paged", "paged_ref"):
+            step.tables = torch.arange(x.shape[0], dtype=torch.int32,
+                                       device=x.device)[:, None]
+            step.overflow = int(kv_len.max()) >= S
+        return step
+
+    def __call__(self, cache: dict, i: int, q, k, v, compute_dtype):
+        """Layer ``i``: write the token's K/V (B, 1, KVH, hd) into the
+        cache and attend q (B, 1, Hq, hd) over it; counted in
+        ``DECODE_ROUTES``.  Returns (B, 1, Hq, hd)."""
+        cfg, route = self.cfg, self.route
+        DECODE_ROUTES[route] += 1
+        if route not in ("paged", "paged_ref"):
+            L.cache_insert_layer(cache, i, k, v, self.kv_len, cfg)
+            kc, vc = L.cache_layer_arrays(cache, i, cfg, compute_dtype)
+            return L.decode_attention(q, kc, vc, self.valid,
+                                      kv_chunk=cfg.decode_kv_chunk)
+        impl = "cuda" if route == "paged" else "ref"
+        # the layer's (B, S, KVH, hd) slice: B pages of S tokens
+        k_pages, v_pages = cache["k"][i], cache["v"][i]
+        if self.overflow:
+            L.cache_insert_layer(cache, i, k, v, self.kv_len, cfg)
+            o = paged_attention(q[:, 0], k_pages, v_pages, self.tables,
+                                self.valid, impl=impl)
+        else:
+            o, _, _ = paged_decode_step(q[:, 0], k[:, 0], v[:, 0], k_pages,
+                                        v_pages, self.tables, self.kv_len,
+                                        impl=impl)
+        return o[:, None]
+
+
+def _attn_layer_decode(x, p, cfg: ModelConfig, positions, cache: dict,
+                       i: int, attn: DecodeAttention, compute_dtype):
+    """One-token self-attention sublayer with its residual (decode): x
+    (B, 1, D), the token's K/V written into layer ``i`` of the cache."""
+    h = L.rms_norm(x, p["ln1"], cfg.norm_eps)
+    q, k, v = _qkv(h, p, cfg)
+    q = L.apply_rope(q, positions, cfg.rope_theta, cfg.mrope_sections)
+    k = L.apply_rope(k, positions, cfg.rope_theta, cfg.mrope_sections)
+    o = attn(cache, i, q, k, v, compute_dtype)
+    return x + _out_proj(o.to(x.dtype), p["wo"])
+
+
+def decoder_decode_step(params: dict, cfg: ModelConfig, cache: dict,
+                        batch: dict, mlp: Callable, *,
+                        attn_impl: str = "auto",
+                        compute_dtype: torch.dtype = L.COMPUTE_DTYPE,
+                        fp32: tuple = NORMS):
+    """The decoder-only decode step with the feed-forward sublayer
+    ``mlp(x, p, cfg)`` and the ``fp32`` layer parameters as in
+    ``decoder_prefill``; see ``dense_decode_step``."""
+    tokens = batch["tokens"]
+    B = tokens.shape[0]
+    dev = params["embed"].device
+    x = params["embed"][tokens.long()].to(compute_dtype)
+    positions = _positions(cfg, batch, B, 1, dev, offset=batch["kv_len"])
+    attn = DecodeAttention.plan(cfg, x, attn_impl, cache, batch["kv_len"])
+    for i in range(cfg.num_layers):
+        p = _layer_params(params, i, compute_dtype, fp32=fp32)
+        x = _attn_layer_decode(x, p, cfg, positions, cache, i, attn,
+                               compute_dtype)
+        x = mlp(x, p, cfg)
+    return _logits(params, cfg, x[:, 0]), cache
 
 
 def dense_decode_step(params: dict, cfg: ModelConfig, cache: dict,
@@ -301,57 +461,11 @@ def dense_decode_step(params: dict, cfg: ModelConfig, cache: dict,
                       compute_dtype: torch.dtype = L.COMPUTE_DTYPE):
     """batch: ``tokens`` (B, 1), ``kv_len`` (B,).  Returns (logits (B, V),
     cache), the cache updated in place with one token write per layer
-    (what donation does in the reference).
-
-    A write at ``kv_len >= S`` (the cache's length) is dropped and the
-    token attends over the S cached positions, as in the reference (JAX
-    drops an out-of-bounds scatter).  On the paged routes the step reads
-    ``max(kv_len)`` on the host once to know: when some row has run out,
-    each layer writes through the plain masked insert and launches the
-    attend-only kernel over ``min(kv_len + 1, S)`` positions instead of
-    the fused write-and-attend launch.
-    """
-    tokens = batch["tokens"]
-    kv_len = batch["kv_len"]
-    B = tokens.shape[0]
-    dev = params["embed"].device
-    x = params["embed"][tokens.long()].to(compute_dtype)
-    positions = _positions(cfg, batch, B, 1, dev, offset=kv_len)
-    route = decode_route(cfg, x, attn_impl)
-    S = cache["k"].shape[2]
-    valid = torch.clamp(kv_len.to(dev) + 1, max=S).to(torch.int32)
-    if route in ("paged", "paged_ref"):
-        impl = "cuda" if route == "paged" else "ref"
-        kv32 = kv_len.to(device=dev, dtype=torch.int32)
-        tables = torch.arange(B, dtype=torch.int32, device=dev)[:, None]
-        overflow = int(kv32.max()) >= S
-    for i in range(cfg.num_layers):
-        p = _layer_params(params, i, compute_dtype)
-        h = L.rms_norm(x, p["ln1"], cfg.norm_eps)
-        q, k, v = _qkv(h, p, cfg)
-        q = L.apply_rope(q, positions, cfg.rope_theta, cfg.mrope_sections)
-        k = L.apply_rope(k, positions, cfg.rope_theta, cfg.mrope_sections)
-        if route in ("paged", "paged_ref"):
-            # the layer's (B, S, KVH, hd) slice: B pages of S tokens
-            k_pages, v_pages = cache["k"][i], cache["v"][i]
-            if overflow:
-                L.cache_insert_layer(cache, i, k, v, kv_len, cfg)
-                o = paged_attention(q[:, 0], k_pages, v_pages, tables, valid,
-                                    impl=impl)
-            else:
-                o, _, _ = paged_decode_step(q[:, 0], k[:, 0], v[:, 0],
-                                            k_pages, v_pages, tables, kv32,
-                                            impl=impl)
-            o = o[:, None]
-        else:
-            L.cache_insert_layer(cache, i, k, v, kv_len, cfg)
-            kc, vc = L.cache_layer_arrays(cache, i, cfg, compute_dtype)
-            o = L.decode_attention(q, kc, vc, valid,
-                                   kv_chunk=cfg.decode_kv_chunk)
-        DECODE_ROUTES[route] += 1
-        x = x + _out_proj(o.to(x.dtype), p["wo"])
-        x = _mlp_layer(x, p, cfg)
-    return _logits(params, cfg, x[:, 0]), cache
+    (what donation does in the reference); a write past the cache's end is
+    dropped (``DecodeAttention``)."""
+    return decoder_decode_step(params, cfg, cache, batch, _mlp_layer,
+                               attn_impl=attn_impl,
+                               compute_dtype=compute_dtype)
 
 
 def init_cache_shape(cfg: ModelConfig, batch: int, max_len: int, *,

@@ -683,3 +683,123 @@ def test_flash_attention_hd128_main_path_shapes(card, shape, dtype):
     torch.cuda.synchronize()
     want = flash_attention_ref(q, k, v, causal=True)
     torch.testing.assert_close(got.float(), want.float(), **TOL[dtype])
+
+
+# ---------------------------------------------------------------------------
+# the MoE and encoder-decoder Model API's kernel routes
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape,causal", [
+    ((4, 48, 8, 256, 128), True),   # dbrx-132b prefill: G = 6
+    ((4, 48, 8, 512, 128), True),   # mixtral-8x22b prefill
+    ((4, 16, 16, 256, 64), False),  # seamless-m4t encoder, non-causal
+    ((4, 16, 16, 64, 64), True)])   # seamless-m4t decoder prefill
+def test_flash_attention_moe_and_encdec_shapes(card, shape, causal, dtype):
+    q, k, v = _flash_inputs(*shape, getattr(torch, dtype), card)
+    got = flash_attention(q, k, v, causal=causal, impl="cuda")
+    torch.cuda.synchronize()
+    want = flash_attention_ref(q, k, v, causal=causal)
+    torch.testing.assert_close(got.float(), want.float(), **TOL[dtype])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("heads", [(16, 16, 64), (48, 8, 128)])
+def test_paged_attend_only_over_a_cross_cache(card, heads, dtype):
+    """The encoder-decoder's cross-attention at decode: a layer's xk/xv
+    (B, 256, H, hd) as B pages of 256 frames, lengths below the page for
+    two rows; the attend-only kernel writes nothing."""
+    Hq, KVH, hd = heads
+    _, _, _, k, v, tables, _ = _one_page_inputs(4, Hq, KVH, hd, 256,
+                                                getattr(torch, dtype), card)
+    q = torch.randn(4, Hq, hd, device=card).to(getattr(torch, dtype))
+    lens = torch.tensor([256, 256, 200, 137], dtype=torch.int32, device=card)
+    k0, v0 = k.clone(), v.clone()
+    got = paged_attention(q, k, v, tables, lens, impl="cuda")
+    torch.cuda.synchronize()
+    want = paged_attention_ref(q, k, v, tables, lens)
+    assert torch.equal(k, k0) and torch.equal(v, v0)
+    torch.testing.assert_close(got.float(), want.float(), **TOL[dtype])
+    if dtype == "bfloat16":
+        assert bf16_ulp_err(got, want) <= 1.0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_windowed_prefill_fits_the_window_on_flash(card, dtype):
+    """A sliding-window config's prefill with the prompt inside the window
+    runs the flash kernel (counted), against its plain version, which
+    equals the windowed reference there; past the window it raises before
+    any launch."""
+    from repro_torch.configs import get_reduced_config
+    from repro_torch.models import layers as L
+    from repro_torch.models import transformer as T
+    from repro_torch.models.model import build_model
+
+    cfg = get_reduced_config("mixtral-8x22b").replace(
+        d_model=256, num_heads=4, num_kv_heads=2, d_ff=256, sliding_window=32)
+    model = build_model(cfg, compute_dtype=getattr(torch, dtype))
+    params = model.init(torch.Generator(card).manual_seed(0))
+    tokens = torch.randint(0, cfg.vocab_size, (2, 32), device=card,
+                           dtype=torch.int32)
+    before = flash_kernel.launches
+    got = model.prefill(params, {"tokens": tokens}, attn_impl="cuda")[0]
+    want = model.prefill(params, {"tokens": tokens}, attn_impl="ref")[0]
+    torch.cuda.synchronize()
+    assert flash_kernel.launches == before + cfg.num_layers
+    torch.testing.assert_close(got.float(), want.float(), **TOL[dtype])
+    q, k, v = (x.transpose(1, 2) for x in _flash_inputs(
+        2, 4, 2, 32, 64, torch.float32, card))
+    torch.testing.assert_close(
+        T.prefill_attention(q, k, v, cfg, "ref"),
+        L.causal_attention(q, k, v, chunk=cfg.attn_chunk, window=32),
+        **TOL["float32"])
+    with pytest.raises(NotImplementedError, match="sliding window"):
+        model.prefill(params, {"tokens": torch.cat([tokens, tokens], 1)},
+                      attn_impl="cuda")
+    assert flash_kernel.launches == before + cfg.num_layers
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_windowed_decode_runs_the_ring_on_paged(card, dtype):
+    """A sliding-window config's decode on the kernel route: the fused
+    step while every row is inside its ring of S = 8 slots, then the
+    ring's insert and the attend-only launch once a row has reached S (its
+    write wrapping to slot kv_len % S), one launch per layer a step,
+    against the kernels' plain versions; layer 0's cache bitwise."""
+    from repro_torch.models import transformer as T
+    from repro_torch.models.model import build_model
+
+    cfg = _small_dense_cfg().replace(sliding_window=8)
+    model = build_model(cfg, compute_dtype=getattr(torch, dtype))
+    params = model.init(torch.Generator(card).manual_seed(0))
+    g = torch.Generator(card).manual_seed(1)
+    tokens = torch.randint(0, cfg.vocab_size, (2, 6), generator=g,
+                           device=card, dtype=torch.int32)
+    lens = torch.tensor([6, 4], dtype=torch.int32, device=card)
+    caches = {impl: model.prefill(params, {"tokens": tokens,
+                                           "prompt_lens": lens},
+                                  max_len=16, attn_impl=impl)[1]
+              for impl in ("cuda", "ref")}
+    assert caches["cuda"]["k"].shape[2] == 8
+    for j in range(6):  # row 0 reaches S at the third step
+        batch = {"tokens": torch.randint(0, cfg.vocab_size, (2, 1),
+                                         generator=g, device=card,
+                                         dtype=torch.int32),
+                 "kv_len": lens + j}
+        before = t_kernel.launches
+        got, _ = model.decode_step(params, caches["cuda"], batch,
+                                   attn_impl="cuda")
+        want, _ = model.decode_step(params, caches["ref"], batch,
+                                    attn_impl="ref")
+        torch.cuda.synchronize()
+        assert t_kernel.launches == before + cfg.num_layers
+        torch.testing.assert_close(got.float(), want.float(), **TOL[dtype])
+        for name in ("k", "v"):
+            assert torch.equal(caches["cuda"][name][0],
+                               caches["ref"][name][0])
+    assert T.decode_route(cfg, got, "auto") == "paged"

@@ -86,6 +86,16 @@ PORTED_NAMES = {
         "_attn_layer_full", "_dense_layer_fwd"),
     "repro_torch.models.model": ("Model", "build_model",
                                  "params_from_numpy", "cache_from_numpy"),
+    "repro_torch.models.moe": ("init_moe_layer", "init_moe",
+                               "router_weights", "_moe_mlp",
+                               "_moe_layer_fwd", "moe_prefill",
+                               "moe_decode_step"),
+    "repro_torch.models.moe_dispatch": ("moe_dispatch_mlp",
+                                        "dropped_fraction"),
+    "repro_torch.models.encdec": ("init_enc_layer", "init_dec_layer",
+                                  "init_encdec", "bidir_attention", "_mlp",
+                                  "encode", "_dec_layer_full",
+                                  "encdec_prefill", "encdec_decode_step"),
     "repro_torch.examples.quickstart": ("main",),
     "repro_torch.core.peft": ("shared_param_fraction",),
     "repro_torch.serving.request": ("Request", "generate_trace",

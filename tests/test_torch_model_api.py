@@ -55,8 +55,7 @@ HALF_WINDOW = 1e-6  # |x/scale - (n + 0.5)| below which a code may differ
 MAX_CODE_FLIPS = 1e-3  # of all codes
 DENSE = ("tinyllama-1.1b", "qwen1.5-32b", "qwen2-72b", "stablelm-12b",
          "qwen2-vl-7b", "blockllm-demo")
-NOT_PORTED = {"moe": "mixtral-8x22b", "hybrid": "zamba2-2.7b",
-              "ssm": "xlstm-125m", "encdec": "seamless-m4t-medium"}
+NOT_PORTED = {"hybrid": "zamba2-2.7b", "ssm": "xlstm-125m"}
 
 # case -> (config, fields replaced, B, S, prompt_lens, max_len, kv_len per
 # decode step (None: prompt_lens + j), decode steps)
@@ -270,13 +269,17 @@ def test_shapes_and_applicable_shapes_equal_the_reference():
             [s.name for s in j_app(j_get(name))]
 
 
-@pytest.mark.parametrize("name", DENSE + ("blockllm-demo-large",))
+@pytest.mark.parametrize("name", DENSE + (
+    "blockllm-demo-large", "mixtral-8x22b", "dbrx-132b",
+    "seamless-m4t-medium"))
 def test_param_count_equals_the_reference_at_full_size(name):
     from repro.configs import get_config as j_get
 
     cfg = get_config(name)
     assert cfg.param_count() == j_get(name).param_count()
-    assert cfg.active_param_count() == cfg.param_count()
+    assert cfg.active_param_count() == j_get(name).active_param_count()
+    assert (cfg.active_param_count() < cfg.param_count()) == \
+        (cfg.family == "moe")
     shapes = build_model(cfg).param_shapes()
     assert shapes["embed"].device.type == "meta"
 
@@ -337,9 +340,7 @@ def test_params_from_numpy_checks_the_tree(ref):
 # ---------------------------------------------------------------------------
 
 
-# no kernel route has a window (ROADMAP.md §2): the window case runs plain
-FP32_RUNS = [(c, impl) for c in sorted(CASES) for impl in ("auto", "ref")
-             if not (c == "window" and impl == "ref")]
+FP32_RUNS = [(c, impl) for c in sorted(CASES) for impl in ("auto", "ref")]
 
 
 @pytest.mark.parametrize("case,attn_impl", FP32_RUNS)
@@ -347,14 +348,17 @@ def test_prefill_and_decode_match_jax_fp32(ref, case, attn_impl):
     """fp32: prefill logits and cache, then each decode step's logits and
     the final cache, on the plain route (``auto`` on the CPU) and on the
     kernels' plain versions (``ref``: flash's, and paged's over the cache's
-    one-page-per-sequence view)."""
+    one-page-per-sequence view).  The window case's prompt is longer than
+    the window, which flash does not take (ROADMAP.md §2): it prefills on
+    the plain route, then decodes its ring buffer on ``attn_impl``."""
     cfg, batch, max_len, steps = case_inputs(case)
     r = ref[case]
     model = build_model(cfg, compute_dtype=torch.float32)
     params = params_from_numpy(cfg, r["params"], "cpu")
     tb = _torch_batch(batch)
-    logits, cache, plens = model.prefill(params, tb, max_len=max_len,
-                                         attn_impl=attn_impl)
+    logits, cache, plens = model.prefill(
+        params, tb, max_len=max_len,
+        attn_impl="auto" if case == "window" else attn_impl)
     np.testing.assert_allclose(logits.numpy(), r["logits"], **TOL["float32"])
     np.testing.assert_array_equal(plens.numpy(), r["prompt_lens"])
     raw = (_raw_prefill_kv(params, cfg, tb, max_len)
@@ -371,7 +375,6 @@ def test_prefill_and_decode_match_jax_fp32(ref, case, attn_impl):
         np.testing.assert_allclose(lg.numpy(), r["steps"][j],
                                    **TOL["float32"], err_msg=f"step {j}")
     route = ("int8" if cfg.kv_cache_dtype == "int8" else
-             "window" if cfg.sliding_window else
              "plain" if attn_impl == "auto" else "paged_ref")
     assert T.DECODE_ROUTES == {k: cfg.num_layers * len(steps) * (k == route)
                                for k in T.DECODE_ROUTES}
@@ -557,8 +560,9 @@ def test_decode_attention_matches_jax_fp32(window, kv_chunk):
 
 
 def test_kernel_gaps_raise_not_implemented():
-    """Under the kernel route: head dim 160 (stablelm-12b) and a sliding
-    window have no kernel; the route is chosen before any launch."""
+    """Under the kernel route: head dim 160 (stablelm-12b) and a prompt
+    longer than a sliding window have no kernel; the route is chosen
+    before any launch."""
     stablelm = get_config("stablelm-12b")
     assert stablelm.resolved_head_dim == 160
     x = torch.zeros(1, 1, 1)
@@ -568,19 +572,73 @@ def test_kernel_gaps_raise_not_implemented():
     with pytest.raises(NotImplementedError, match="head dim 160"):
         T.prefill_attention(q, q, q, stablelm, "cuda")
     windowed = get_config("tinyllama-1.1b").replace(sliding_window=64)
-    q = torch.zeros(1, 4, 2, 64)
-    with pytest.raises(NotImplementedError, match="sliding window"):
-        T.prefill_attention(q, q, q, windowed, "cuda")
-    # the config picks the plain routes for int8 and a window, whatever
-    # attn_impl says
+    q = torch.zeros(1, 65, 2, 64)  # S = 65 > the window of 64
+    for impl in ("cuda", "ref"):
+        with pytest.raises(NotImplementedError, match="sliding window"):
+            T.prefill_attention(q, q, q, windowed, impl)
+    # S <= window: the window masks nothing, flash computes it
+    assert T.prefill_route(windowed, q[:, :64], "cuda") == "flash"
+    assert T.prefill_route(windowed, q[:, :2], "ref") == "flash_ref"
+    assert T.prefill_route(windowed, q, "auto") == "plain"  # a CPU tensor
+    # the config picks the plain route for int8, whatever attn_impl says;
+    # a window's ring buffer decodes on the paged kernel
     assert T.decode_route(get_config("qwen1.5-32b"), x, "cuda") == "int8"
-    assert T.decode_route(windowed, x, "cuda") == "window"
+    assert T.decode_route(windowed, x, "cuda") == "paged"
+    assert T.decode_route(windowed, x, "auto") == "plain"  # a CPU tensor
     assert T.decode_route(get_config("qwen2-72b"), x, "cuda") == "paged"
     assert T.decode_route(get_config("qwen2-72b"), x, "ref") == "paged_ref"
     # the reference's plain code only by device: auto on a CPU tensor
     assert T.decode_route(get_config("qwen2-72b"), x, "auto") == "plain"
     with pytest.raises(ValueError, match="attn_impl 'plain'"):
         T.decode_route(get_config("qwen2-72b"), x, "plain")
+
+
+def test_window_decode_on_paged_ref_equals_the_plain_ring():
+    """A sliding window's ring of S = 8 slots on the kernels' plain
+    versions (``ref``: the fused step while every row is inside the ring,
+    then the ring's insert and attend-only paged attention once a row has
+    reached S) equals the reference's plain ring buffer (``auto`` on the
+    CPU) across the wrap, fp32 2e-5, and writes the same cache."""
+    cfg = get_reduced_config("tinyllama-1.1b").replace(sliding_window=8)
+    model = build_model(cfg, compute_dtype=torch.float32)
+    params = model.init(torch.Generator().manual_seed(0))
+    rng = np.random.RandomState(13)
+    tokens = torch.from_numpy(rng.randint(0, cfg.vocab_size, (2, 6))
+                              .astype(np.int32))
+    lens = torch.tensor([6, 4], dtype=torch.int32)
+    batch = {"tokens": tokens, "prompt_lens": lens}
+    caches = {impl: model.prefill(params, batch, max_len=16,
+                                  attn_impl=impl)[1]
+              for impl in ("auto", "ref")}
+    assert caches["ref"]["k"].shape[2] == 8
+    for j in range(6):  # row 0 reaches S at the third step, row 1 at the 5th
+        st = {"tokens": torch.from_numpy(rng.randint(
+            0, cfg.vocab_size, (2, 1)).astype(np.int32)), "kv_len": lens + j}
+        want, _ = model.decode_step(params, caches["auto"], st,
+                                    attn_impl="auto")
+        got, _ = model.decode_step(params, caches["ref"], st,
+                                   attn_impl="ref")
+        np.testing.assert_allclose(got.numpy(), want.numpy(),
+                                   **TOL["float32"], err_msg=f"step {j}")
+    for name in ("k", "v"):
+        np.testing.assert_allclose(caches["ref"][name].numpy(),
+                                   caches["auto"][name].numpy(),
+                                   **TOL["float32"])
+
+
+@pytest.mark.parametrize("S", [1, 7, 8])
+def test_window_prefill_on_flash_equals_the_windowed_reference(S):
+    """At S <= window (8) the ``ref`` route (flash's plain version, no
+    window) equals ``layers.causal_attention(window=8)``, fp32 2e-5."""
+    cfg = get_reduced_config("tinyllama-1.1b").replace(sliding_window=8)
+    rng = np.random.RandomState(12)
+    q = torch.from_numpy(rng.standard_normal((2, S, 4, 16)).astype(np.float32))
+    k, v = (torch.from_numpy(rng.standard_normal((2, S, 2, 16))
+                             .astype(np.float32)) for _ in range(2))
+    want = L.causal_attention(q, k, v, chunk=cfg.attn_chunk, window=8)
+    got = T.prefill_attention(q, k, v, cfg, "ref")
+    np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=2e-5,
+                               atol=2e-5)
 
 
 def test_mlps_match_jax_fp32():
