@@ -117,7 +117,25 @@ script exits non-zero without printing a result:
    decoder's self-attention on flash and the fused paged step, its
    cross-attention on the attend-only paged kernel at ``src_len`` (the
    cross cache bitwise unchanged), against the ref route.  Each reports
-   its resident bytes at the start and its peak.
+   its resident bytes at the start and its peak;
+10. the hybrid and SSM families, stablelm's head dim: hybrid --
+   zamba2-2.7b whole (54 mamba layers, the shared attention block applied
+   9 times, head dim 80, G = 1), 4 prompts padded to 512, 64 greedy
+   steps: flash 9 a prefill, the fused paged step 9 a decode step, every
+   shared-block application held against the ref route's from the same
+   input, the whole runs by their tokens; then the ring run (one
+   4,080-token prompt in the 4,096-slot window, 32 steps: the fused step,
+   then the ring's insert and the attend-only launch at hd 80), held the
+   same way; ssm --
+   xlstm-125m whole, 4 prompts padded to 512, 64 greedy steps, no kernel
+   launched, an fp32 run of the same weights on the card held against the
+   same run on the host's CPU (tokens at a clear margin), the bf16 run
+   against fp32 reported, the prefill's launches (its two time loops')
+   profiled;
+   stablelm -- stablelm-12b's widths (head dim 160, G = 4) cut to 2
+   layers, 4 prompts padded to 256, 32 steps: flash 2, paged 64, held
+   against ref.  The kernels phase holds flash and paged at these shapes
+   too.
 
 The line before the last two gives each kernel's launches on the main
 paths, its largest error against its plain version at their shapes, and
@@ -186,6 +204,8 @@ from repro_torch.launch import serve as launcher  # noqa: E402
 from repro_torch.models import layers as L  # noqa: E402
 from repro_torch.models import moe as M  # noqa: E402
 from repro_torch.models import transformer as T  # noqa: E402
+from repro_torch.models import xlstm as X  # noqa: E402
+from repro_torch.models.mamba2 import mamba_dims  # noqa: E402
 from repro_torch.models.model import build_model  # noqa: E402
 from repro_torch.models.moe_dispatch import dropped_fraction  # noqa: E402
 from repro_torch.serving.api import ServeRequest  # noqa: E402
@@ -1685,6 +1705,12 @@ def reset_routes() -> None:
             routes[k] = 0
 
 
+def all_routes() -> dict:
+    """Both route counters in one dict, the prefill's keys prefixed."""
+    return {**{f"prefill_{k}": v for k, v in T.PREFILL_ROUTES.items()},
+            **T.DECODE_ROUTES}
+
+
 def settle() -> int:
     """Free what earlier phases left for the cyclic collector (engines and
     their executors refer to each other, and hold KV pools and zoos), so a
@@ -1744,6 +1770,18 @@ def top2_margin(logits):
     return top2[..., 0] - top2[..., 1]
 
 
+def hop_ratio(got, want, keep):
+    """(|got - want| on the rows ``keep`` marks, the worst ratio of it to
+    the per-hop bound 2e-2 + 2e-2 |want| + one bf16 ulp at the row's
+    largest |logit|)."""
+    mag = want.abs().amax(dim=-1, keepdim=True)
+    _, e = torch.frexp(mag)
+    bound = 2e-2 + 2e-2 * want.abs() + torch.ldexp(torch.ones_like(mag),
+                                                   e - 8)
+    err = (got - want).abs() * keep[..., None]
+    return err, float((err / bound).max())
+
+
 def hold_logits(got, want, what, keep=None):
     """A whole bf16 chain against the same chain on the kernels' plain
     versions, teacher-forced on the same tokens: every logit within
@@ -1753,15 +1791,10 @@ def hold_logits(got, want, what, keep=None):
     these shapes in the kernels phase); only the rows (step, sequence)
     ``keep`` marks, if given.  Returns the logits' largest error per step,
     their worst ratio to the per-hop bound and the tokens compared."""
-    mag = want.abs().amax(dim=-1, keepdim=True)
-    _, e = torch.frexp(mag)
-    bound = 2e-2 + 2e-2 * want.abs() + torch.ldexp(torch.ones_like(mag),
-                                                   e - 8)
     if keep is None:
         keep = torch.ones(want.shape[:-1], dtype=torch.bool,
                           device=want.device)
-    err = (got - want).abs() * keep[..., None]
-    worst = float((err / bound).max())
+    err, worst = hop_ratio(got, want, keep)
     clear = (top2_margin(want) > API_MARGIN) & keep
     flips = int((got.argmax(-1) != want.argmax(-1))[clear].sum())
     if not worst <= API_CHAIN_BOUND or flips:
@@ -2241,8 +2274,7 @@ def moe_phase(name, smi):
     got_tok, got, prefill_s, step_s = api_run(model, params, tokens, lens,
                                               max_len, MOE_GEN, "auto")
     launches = read_launches()
-    routes = {**{f"prefill_{k}": v for k, v in T.PREFILL_ROUTES.items()},
-              **T.DECODE_ROUTES}
+    routes = all_routes()
     L_ = cfg.num_layers
     check_api_launches(name, launches, routes, {
         "paged_attention": L_ * MOE_GEN, "flash_attention": L_,
@@ -2348,8 +2380,7 @@ def encdec_phase(smi):
     got_tok, got, prefill_s, step_s = api_run(model, params, tokens, lens,
                                               ENC_MAX, ENC_GEN, "auto", **io)
     launches = read_launches()
-    routes = {**{f"prefill_{k}": v for k, v in T.PREFILL_ROUTES.items()},
-              **T.DECODE_ROUTES}
+    routes = all_routes()
     Le, Ld = cfg.encoder_layers, cfg.decoder_layers
     check_api_launches("encdec", launches, routes, {
         "paged_attention": 2 * Ld * ENC_GEN, "flash_attention": Le + Ld,
@@ -2403,6 +2434,407 @@ def encdec_phase(smi):
            "vs_ref": vs_ref, "cross_cache_bitwise_unchanged": True,
            "max_memory_allocated_bytes": peak,
            "resident_bytes_at_start": resident, "card": smi}
+    emit(row)
+    return launches, row
+
+
+# ---------------------------------------------------------------------------
+# phase 10: the hybrid and SSM families, stablelm's head dim
+# ---------------------------------------------------------------------------
+
+# hybrid: zamba2-2.7b whole (54 mamba layers, the shared block applied 9
+# times, 2.44 B parameters); B = 4 prompts padded to 512, a cache of 576, 64
+# greedy steps; then the ring run: one prompt of 4,080 tokens in a cache of
+# the window (4,096 slots), 32 steps, the last 16 past the window
+HYB_MODEL = "zamba2-2.7b"
+HYB_B, HYB_S, HYB_MAX, HYB_GEN, HYB_SEED = 4, 512, 576, 64, 18
+HYB_PROMPTS = (128, 512)
+RING_S, RING_MAX, RING_GEN, RING_SEED = 4080, 4112, 32, 19
+# ssm: xlstm-125m whole (12 blocks); B = 4 prompts padded to 512, 64 steps
+SSM_MODEL = "xlstm-125m"
+SSM_B, SSM_S, SSM_GEN, SSM_SEED = 4, 512, 64, 20
+SSM_PROMPTS = (128, 512)
+# stablelm: stablelm-12b's published widths (head dim 160, G = 4), depth
+# cut to 2 layers; B = 4 prompts padded to 256, a cache of 288, 32 steps
+STABLE_MODEL = "stablelm-12b"
+STABLE_B, STABLE_S, STABLE_GEN, STABLE_SEED = 4, 256, 32, 21
+STABLE_PROMPTS = (64, 256)
+
+
+def hybrid_floor(params, cfg, B, positions):
+    """(bytes, ms): what one zamba2 decode step must move at least, over
+    the HBM bandwidth: every mamba layer's weights once (``w_in``/``w_out``
+    in bf16, the rest fp32), the shared block's bf16 weights once per
+    application (118 M parameters: no L2 holds them between two), the bf16
+    head, the SSM and conv states read and written, and ``positions`` K/V
+    rows (summed over the rows) per application read."""
+    from repro_torch.models.mamba2 import MAMBA_CAST, SHARED_FP32
+
+    n_super = cfg.num_layers // cfg.shared_attn_every
+    nbytes = sum(t.numel() * (2 if k in MAMBA_CAST else 4)
+                 for k, t in params["mamba"].items())
+    nbytes += n_super * sum(t.numel() * (4 if k in SHARED_FP32 else 2)
+                            for k, t in params["shared_attn"].items())
+    nbytes += params["lm_head"].numel() * 2
+    d_inner, H, N, conv_ch, _ = mamba_dims(cfg)
+    per_layer = B * (H * cfg.ssm_head_dim * N * 4
+                     + (cfg.ssm_conv_width - 1) * conv_ch * 2)
+    nbytes += 2 * cfg.num_layers * per_layer
+    nbytes += n_super * positions * 2 * cfg.num_kv_heads \
+        * cfg.resolved_head_dim * 2
+    return nbytes, nbytes / HBM_BW * 1e3
+
+
+def api_row(cfg, tokens, lens, max_len, steps, launches, routes, prefill_s,
+            step_s, profile, peak, resident, smi, **extra):
+    """The JSON line of a Model API run: widths, lengths, launches and
+    routes, prefill and decode speed, the profile, memory."""
+    return {"model": cfg.name, "layers": cfg.num_layers,
+            "d_model": cfg.d_model,
+            "heads": [cfg.num_heads, cfg.num_kv_heads,
+                      cfg.resolved_head_dim], "d_ff": cfg.d_ff,
+            "vocab": cfg.vocab_size, "batch": tokens.shape[0],
+            "padded_S": tokens.shape[1], "max_len": max_len,
+            "prompt_lens": lens.cpu().tolist(), "decode_steps": steps,
+            "launches": launches,
+            "routes": {k: v for k, v in routes.items() if v},
+            "prefill_ms": prefill_s * 1e3,
+            "prefill_tok_per_s": int(lens.sum()) / prefill_s,
+            "decode_tok_per_s": tokens.shape[0] * steps / sum(step_s),
+            "decode_step_wall_p50_s": float(np.percentile(step_s, 50)),
+            "decode_step_wall_p95_s": float(np.percentile(step_s, 95)),
+            "decode_profile": profile,
+            "max_memory_allocated_bytes": peak,
+            "resident_bytes_at_start": resident, **extra, "card": smi}
+
+
+def decode_profile(model, params, tokens, lens, max_len, nxt, floor=None):
+    """``profile_decode``'s numbers as a dict, with the weight-read floor
+    (bytes, ms) where given."""
+    device_ms, per_step, paged_ms = profile_decode(model, params, tokens,
+                                                   lens, max_len, nxt)
+    out = {"steps": MOE_PROFILE_STEPS, "device_ms_per_step": device_ms,
+           "kernel_launches_per_step": per_step,
+           "paged_ms_per_step": paged_ms}
+    if floor is not None:
+        out["floor_bytes_per_step"], out["floor_ms_per_step"] = floor
+    return out
+
+
+def hybrid_vs_ref(model, params, tokens, lens, max_len, forced, what):
+    """The kernel route held against the ``ref`` route hop by hop on the
+    main path: a run of the kernel route teacher-forced on ``forced`` in
+    which every application of the shared block (the only hop whose routes
+    differ) is also computed on the ref route from the same input (in
+    decode, on a copy of its cache layer, taken before the kernel route
+    writes it), each output within the per-hop bound (2e-2 + 2e-2 |x| +
+    one bf16 ulp at the token's largest |x|).  A recurrent state
+    integrates each step's rounding, so two whole runs drift apart with
+    the steps: the whole ref run, teacher-forced too, is held by its
+    tokens (no flip where its top-2 gap exceeds 0.1: a fault in a kernel
+    or a cache write moves whole units) and its logits' drift reported."""
+    from repro_torch.models import mamba2 as Z
+
+    block = Z.shared_attn_block
+    hops = []
+
+    def twin(x, h0, p, cfg, positions, *, attn_impl="auto", cache=None,
+             attn=None, layer_idx=None, compute_dtype=L.COMPUTE_DTYPE):
+        if cache is None:
+            want, _ = block(x, h0, p, cfg, positions, attn_impl="ref")
+        else:
+            one = {k: v[layer_idx:layer_idx + 1].clone()
+                   for k, v in cache.items()}
+            plan = T.DecodeAttention.plan(cfg, x, "ref", one, attn.kv_len)
+            want, _ = block(x, h0, p, cfg, positions, cache=one, attn=plan,
+                            layer_idx=0, compute_dtype=compute_dtype)
+        out = block(x, h0, p, cfg, positions, attn_impl=attn_impl,
+                    cache=cache, attn=attn, layer_idx=layer_idx,
+                    compute_dtype=compute_dtype)
+        keep = torch.ones(want.shape[:-1], dtype=torch.bool,
+                          device=want.device)
+        err, ratio = hop_ratio(out[0].float(), want.float(), keep)
+        hops.append((ratio, float(err.max())))
+        return out
+
+    Z.shared_attn_block = twin
+    try:
+        _, got, _, _ = api_run(model, params, tokens, lens, max_len,
+                               forced.shape[1] - 1, "auto", forced=forced)
+    finally:
+        Z.shared_attn_block = block
+    worst = max(r for r, _ in hops)
+    if not worst <= 1.0:
+        raise RuntimeError(f"{what}: a shared block on the kernel route at "
+                           f"{worst} x the per-hop bound from ref")
+    _, whole, _, _ = api_run(model, params, tokens, lens, max_len,
+                             forced.shape[1] - 1, "ref", forced=forced)
+    _, drift = hop_ratio(got, whole, torch.ones(got.shape[:-1],
+                                                dtype=torch.bool,
+                                                device=got.device))
+    clear = top2_margin(whole) > API_MARGIN
+    flips = int((got.argmax(-1) != whole.argmax(-1))[clear].sum())
+    if flips or not clear.any():
+        raise RuntimeError(f"{what}: the whole kernel run against the whole "
+                           f"ref run: {flips} token flips at a clear margin "
+                           f"of {int(clear.sum())}")
+    return {"hops_held": len(hops), "hop_worst_err_over_bound": worst,
+            "hop_max_abs_err": max(e for _, e in hops),
+            "whole_run_worst_err_over_hop_bound": drift,
+            "whole_run_tokens_compared_at_clear_margin": int(clear.sum()),
+            "whole_run_token_flips_at_clear_margin": flips}
+
+
+def hybrid_phase(smi):
+    """``build_model("zamba2-2.7b")`` whole, random weights from seed 0 on
+    the card: prefill 4 padded prompts (the shared block's attention on
+    flash, 9 launches), 64 greedy decode steps (the fused paged step, 9 a
+    step), held against the ``ref`` route hop by hop (``hybrid_vs_ref``);
+    then the ring run (B = 1, 4,080 prompt tokens, a
+    cache of the 4,096-slot window, 32 steps: the fused step until the row
+    reaches the window, then the ring's insert and the attend-only launch
+    at hd 80), held the same way.  Returns ({path: launches}, row)."""
+    resident = settle()
+    cfg = get_config(HYB_MODEL)
+    n_super = cfg.num_layers // cfg.shared_attn_every
+    torch.cuda.reset_peak_memory_stats()
+    model = build_model(cfg)
+    params = init_params(cfg, 0)
+    tokens, lens = api_prompts(cfg, HYB_B, HYB_S, HYB_PROMPTS, HYB_SEED)
+    api_run(model, params, tokens, lens, HYB_MAX, 1, "auto")  # casts, warm-up
+    reset_launches()
+    reset_routes()
+    got_tok, got, prefill_s, step_s = api_run(model, params, tokens, lens,
+                                              HYB_MAX, HYB_GEN, "auto")
+    launches = read_launches()
+    routes = all_routes()
+    check_api_launches("hybrid", launches, routes, {
+        "paged_attention": n_super * HYB_GEN, "flash_attention": n_super,
+        "batched_lora": 0}, {"prefill_flash": n_super,
+                             "paged": n_super * HYB_GEN})
+    if not torch.isfinite(got).all() or got.shape != (
+            HYB_GEN + 1, HYB_B, cfg.vocab_size):
+        raise RuntimeError(f"hybrid: logits {tuple(got.shape)} not finite")
+    vs_ref = hybrid_vs_ref(model, params, tokens, lens, HYB_MAX, got_tok,
+                           "hybrid")
+    positions = int(lens.sum()) + HYB_B * HYB_GEN // 2
+    profile = decode_profile(model, params, tokens, lens, HYB_MAX,
+                             got_tok[:, 0],
+                             hybrid_floor(params, cfg, HYB_B, positions))
+    # the ring run: decode crosses the window of 4,096
+    r_tok, r_lens = api_prompts(cfg, 1, RING_S, (RING_S, RING_S), RING_SEED)
+    api_run(model, params, r_tok, r_lens, RING_MAX, 1, "auto")
+    reset_launches()
+    reset_routes()
+    ring_tok, ring, ring_prefill_s, ring_step_s = api_run(
+        model, params, r_tok, r_lens, RING_MAX, RING_GEN, "auto")
+    ring_launches = read_launches()
+    ring_routes = all_routes()
+    check_api_launches("hybrid_ring", ring_launches, ring_routes, {
+        "paged_attention": n_super * RING_GEN, "flash_attention": n_super,
+        "batched_lora": 0}, {"prefill_flash": n_super,
+                             "paged": n_super * RING_GEN})
+    W = min(RING_MAX, cfg.sliding_window)
+    past = sum(RING_S + j >= W for j in range(RING_GEN))
+    if not 0 < past < RING_GEN or not torch.isfinite(ring).all():
+        raise RuntimeError(f"hybrid_ring: {past} of {RING_GEN} steps past "
+                           f"the window of {W}; logits finite "
+                           f"{bool(torch.isfinite(ring).all())}")
+    ring_vs_ref = hybrid_vs_ref(model, params, r_tok, r_lens, RING_MAX,
+                                ring_tok, "hybrid_ring")
+    peak = torch.cuda.max_memory_allocated()
+    ring_row = {"prompt": RING_S, "max_len": RING_MAX, "window": W,
+                "decode_steps": RING_GEN, "steps_past_window": past,
+                "launches": ring_launches,
+                "routes": {k: v for k, v in ring_routes.items() if v},
+                "prefill_ms": ring_prefill_s * 1e3,
+                "prefill_tok_per_s": RING_S / ring_prefill_s,
+                "decode_step_wall_p50_s": float(np.percentile(ring_step_s,
+                                                              50)),
+                "decode_tok_per_s": RING_GEN / sum(ring_step_s),
+                "vs_ref": ring_vs_ref}
+    row = {"phase": "hybrid", **api_row(
+        cfg, tokens, lens, HYB_MAX, HYB_GEN, launches, routes, prefill_s,
+        step_s, profile, peak, resident, smi,
+        shared_attn_applications=n_super,
+        params=sum(t.numel() for t in tree_leaves(params)),
+        vs_ref=vs_ref, ring=ring_row)}
+    emit(row)
+    del params
+    return {"hybrid": launches, "hybrid_ring": ring_launches}, row
+
+
+def ssm_block_errors(params, cfg, tokens, forced):
+    """Each xlstm block in bf16 against the same block in fp32 (its fp32
+    weights) on the same input, along the bf16 run (the prefill of
+    ``tokens``, then each decode step teacher-forced on ``forced``, from
+    the bf16 run's own states): per block index, the largest relative
+    error in norm, ||bf16 - fp32|| / ||fp32||, and the largest output."""
+    bf16, f32 = torch.bfloat16, torch.float32
+    rel = [0.0] * cfg.num_layers
+    top = [0.0] * cfg.num_layers
+    states = []
+
+    def run(h, i, raw, state=None, collect=False):
+        out, new = X._block(h, raw, cfg, i, state=state, collect=collect,
+                            compute_dtype=bf16)
+        want, _ = X._block(h.float(), raw, cfg, i, state=state,
+                           compute_dtype=f32)
+        rel[i] = max(rel[i], float((out.float() - want).norm()
+                                   / want.norm()))
+        top[i] = max(top[i], float(want.abs().max()))
+        return out, new
+
+    h = params["embed"][tokens.long()].to(bf16)
+    for i, raw in enumerate(params["blocks"]):
+        h, st = run(h, i, raw, collect=True)
+        states.append(st)
+    for j in range(forced.shape[1] - 1):
+        h = params["embed"][forced[:, j, None].long()].to(bf16)
+        for i, raw in enumerate(params["blocks"]):
+            h, states[i] = run(h, i, raw, state=states[i])
+    return rel, top
+
+
+def to_device(tree, device):
+    if isinstance(tree, dict):
+        return {k: to_device(v, device) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(to_device(v, device) for v in tree)
+    return tree.to(device)
+
+
+def ssm_phase(smi):
+    """``build_model("xlstm-125m")`` whole, random weights from seed 0 on
+    the card: prefill 4 padded prompts (the mLSTM's parallel form and its
+    final-state recurrence, the sLSTM's scan: Python loops over the 512
+    positions), 64 greedy decode steps; no kernel launches, no attention
+    route.  An fp32 run of the same weights on the card, teacher-forced on
+    the bf16 run's tokens, is held against the same fp32 run on the host's
+    CPU (the port there is what the CPU tests hold against JAX): greedy
+    tokens equal where the CPU run's top-2 gap exceeds 0.1, the logits'
+    largest difference reported.  The bf16 run against the fp32 run is
+    reported, not held: with these random weights the residual stream
+    grows to ~10^3 by the last block (the sLSTM's FFN reads it
+    unnormalized, as in the reference) and the mLSTM divides by
+    max(|q . n|, exp(-m)), which cancels in some rows, so whole-run bf16
+    logits differ from fp32 by up to a unit while each block's output is
+    within bf16 rounding in norm (``ssm_block_errors``).  The prefill
+    profiled (its launches, the two loops' included).  Returns (launches,
+    row)."""
+    resident = settle()
+    cfg = get_config(SSM_MODEL)
+    torch.cuda.reset_peak_memory_stats()
+    model = build_model(cfg)
+    params = init_params(cfg, 0)
+    tokens, lens = api_prompts(cfg, SSM_B, SSM_S, SSM_PROMPTS, SSM_SEED)
+    api_run(model, params, tokens, lens, SSM_S, 1, "auto")  # warm-up
+    reset_launches()
+    reset_routes()
+    for k in X.LOOP_STEPS:
+        X.LOOP_STEPS[k] = 0
+    got_tok, got, prefill_s, step_s = api_run(model, params, tokens, lens,
+                                              SSM_S, SSM_GEN, "auto")
+    launches = read_launches()
+    routes = all_routes()
+    loops = dict(X.LOOP_STEPS)
+    check_api_launches("ssm", launches, routes, {
+        "paged_attention": 0, "flash_attention": 0, "batched_lora": 0}, {})
+    n_m = (cfg.num_layers + 1) // 2
+    n_s = cfg.num_layers - n_m
+    if loops != {"mlstm_final_state": n_m * SSM_S,
+                 "slstm_scan": n_s * (SSM_S + SSM_GEN)}:
+        raise RuntimeError(f"ssm: time-loop steps {loops}")
+    if not torch.isfinite(got).all() or got.shape != (
+            SSM_GEN + 1, SSM_B, cfg.vocab_size):
+        raise RuntimeError(f"ssm: logits {tuple(got.shape)} not finite")
+    # fp32 on the same weights, teacher-forced on the bf16 run's tokens, on
+    # the card and on the host's CPU
+    m32 = build_model(cfg, compute_dtype=torch.float32)
+    _, want, _, _ = api_run(m32, params, tokens, lens, SSM_S, SSM_GEN,
+                            "auto", forced=got_tok)
+    t0 = time.perf_counter()
+    _, host, _, _ = api_run(m32, to_device(params, "cpu"), tokens.cpu(),
+                            lens.cpu(), SSM_S, SSM_GEN, "auto",
+                            forced=got_tok.cpu())
+    host_s = time.perf_counter() - t0
+    host = host.to(want.device)
+    clear = top2_margin(host) > API_MARGIN
+    flips = int((want.argmax(-1) != host.argmax(-1))[clear].sum())
+    if flips or not clear.any() or not torch.isfinite(want).all():
+        raise RuntimeError(f"ssm: fp32 on the card against fp32 on the host: "
+                           f"{flips} token flips at a clear margin of "
+                           f"{int(clear.sum())}")
+    margin = top2_margin(want)
+    flipped = got.argmax(-1) != want.argmax(-1)
+    rel, top = ssm_block_errors(params, cfg, tokens, got_tok)
+    vs_fp32 = {"card_vs_host_fp32_tokens_at_clear_margin": int(clear.sum()),
+               "card_vs_host_fp32_token_flips_at_clear_margin": flips,
+               "card_vs_host_fp32_logits_max_abs_err": float(
+                   (want - host).abs().max()),
+               "host_fp32_run_s": host_s,
+               "bf16_vs_fp32_logits_max_abs_err": float((got - want).abs()
+                                                        .max()),
+               "bf16_vs_fp32_token_flips": int(flipped.sum()),
+               "bf16_vs_fp32_largest_margin_flipped": float(
+                   margin[flipped].max()) if flipped.any() else 0.0,
+               "bf16_vs_fp32_tokens": flipped.numel(),
+               "bf16_vs_fp32_block_rel_err": rel,
+               "fp32_block_largest_output": top}
+    batch = {"tokens": tokens, "prompt_lens": lens}
+    by_kernel, _ = profiled(lambda: [model.prefill(params, batch)])
+    prefill_profile = {"device_ms": sum(us for us, _, _ in by_kernel) / 1e3,
+                       "kernel_launches": sum(c for _, c, _ in by_kernel)}
+    profile = decode_profile(model, params, tokens, lens, SSM_S,
+                             got_tok[:, 0])
+    peak = torch.cuda.max_memory_allocated()
+    row = {"phase": "ssm", **api_row(
+        cfg, tokens, lens, SSM_S, SSM_GEN, launches, routes, prefill_s,
+        step_s, profile, peak, resident, smi,
+        params=sum(t.numel() for t in tree_leaves(params)),
+        time_loop_steps=loops, prefill_profile=prefill_profile,
+        vs_fp32=vs_fp32)}
+    emit(row)
+    return launches, row
+
+
+def stablelm_phase(smi):
+    """stablelm-12b's published widths (d 5120, 32/8 heads, head dim 160),
+    depth cut to 2: prefill 4 padded prompts on flash at hd 160, then 32
+    greedy decode steps on the fused paged step at hd 160 (G = 4), held
+    against the ``ref`` route.  Returns (launches, row)."""
+    resident = settle()
+    cfg = cut_config(STABLE_MODEL)
+    max_len = STABLE_S + STABLE_GEN
+    torch.cuda.reset_peak_memory_stats()
+    model = build_model(cfg)
+    params = init_params(cfg, 0)
+    tokens, lens = api_prompts(cfg, STABLE_B, STABLE_S, STABLE_PROMPTS,
+                               STABLE_SEED)
+    api_run(model, params, tokens, lens, max_len, 1, "auto")  # warm-up
+    reset_launches()
+    reset_routes()
+    got_tok, got, prefill_s, step_s = api_run(model, params, tokens, lens,
+                                              max_len, STABLE_GEN, "auto")
+    launches = read_launches()
+    routes = all_routes()
+    L_ = cfg.num_layers
+    check_api_launches("stablelm", launches, routes, {
+        "paged_attention": L_ * STABLE_GEN, "flash_attention": L_,
+        "batched_lora": 0}, {"prefill_flash": L_, "paged": L_ * STABLE_GEN})
+    if not torch.isfinite(got).all():
+        raise RuntimeError("stablelm: logits not finite")
+    _, want, _, _ = api_run(model, params, tokens, lens, max_len, STABLE_GEN,
+                            "ref", forced=got_tok)
+    vs_ref = hold_logits(got, want, "stablelm")
+    profile = decode_profile(model, params, tokens, lens, max_len,
+                             got_tok[:, 0])
+    peak = torch.cuda.max_memory_allocated()
+    row = {"phase": "stablelm", **api_row(
+        cfg, tokens, lens, max_len, STABLE_GEN, launches, routes, prefill_s,
+        step_s, profile, peak, resident, smi,
+        cut=f"depth {get_config(STABLE_MODEL).num_layers} -> {L_} layers",
+        vs_ref=vs_ref)}
     emit(row)
     return launches, row
 
@@ -2476,8 +2908,9 @@ def api_cases(cfg):
     """Flash and paged cases at the shapes the Model API phases give the
     kernels: model_api's prefill (B, 512) and its decode at the prompts
     plus half the generation in a cache of 576; model_api_int8's prefill;
-    cross_size's two models' prefills of 4 x 128; the MoE and
-    encoder-decoder phases' prefills and decodes."""
+    cross_size's two models' prefills of 4 x 128; the MoE,
+    encoder-decoder, hybrid and stablelm phases' prefills and decodes (hd
+    80 and 160)."""
     a, b = cut_config(INT8_MODEL), cut_config(CROSS_B_MODEL)
 
     def heads(c):
@@ -2521,6 +2954,29 @@ def api_cases(cfg):
         [int(n) + ENC_GEN // 2 for n in lens.cpu().numpy()])
     paged[f"main_encdec_cross_page{ENC_SRC}"] = (
         ENC_B, *heads(e), e.resolved_head_dim, ENC_SRC, list(ENC_SRC_LEN))
+    # hybrid: zamba2's shared attention (hd 80, G = 1): the prefill and the
+    # ring run's prefill; decode fused in a cache of 576 at the prompts plus
+    # half the generation, and attend only over the ring's 4,096 slots
+    z = get_config(HYB_MODEL)
+    hd_z = z.resolved_head_dim
+    flash[f"main_hybrid_B{HYB_B}_S{HYB_S}"] = (HYB_B, *heads(z), HYB_S, hd_z,
+                                                True)
+    flash[f"main_hybrid_ring_B1_S{RING_S}"] = (1, *heads(z), RING_S, hd_z,
+                                               True)
+    _, lens = api_prompts(z, HYB_B, HYB_S, HYB_PROMPTS, HYB_SEED)
+    paged[f"main_hybrid_page{HYB_MAX}"] = (
+        HYB_B, *heads(z), hd_z, HYB_MAX,
+        [int(n) + HYB_GEN // 2 for n in lens.cpu().numpy()])
+    W = min(RING_MAX, z.sliding_window)
+    paged[f"main_hybrid_ring_page{W}"] = (1, *heads(z), hd_z, W, [W])
+    # stablelm: hd 160, G = 4: the prefill; decode fused in a cache of 288
+    st = cut_config(STABLE_MODEL)
+    flash[f"main_stablelm_B{STABLE_B}_S{STABLE_S}"] = (
+        STABLE_B, *heads(st), STABLE_S, st.resolved_head_dim, True)
+    _, lens = api_prompts(st, STABLE_B, STABLE_S, STABLE_PROMPTS, STABLE_SEED)
+    paged[f"main_stablelm_page{STABLE_S + STABLE_GEN}"] = (
+        STABLE_B, *heads(st), st.resolved_head_dim, STABLE_S + STABLE_GEN,
+        [int(n) + STABLE_GEN // 2 for n in lens.cpu().numpy()])
     return flash, paged
 
 
@@ -2653,6 +3109,15 @@ def main():
     t0 = time.perf_counter()
     enc_launches, enc = encdec_phase(smi)
     phase_s["encdec"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    hyb_launches, hyb = hybrid_phase(smi)
+    phase_s["hybrid"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ssm_launches, ssm = ssm_phase(smi)
+    phase_s["ssm"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    stable_launches, stable = stablelm_phase(smi)
+    phase_s["stablelm"] = time.perf_counter() - t0
 
     # each main-path run: counts set to 0 just before, read just after
     by_path = {"engine": eng_launches, **{
@@ -2660,7 +3125,8 @@ def main():
         **spec_launches, "adaptive": adaptive_launches,
         "launch": launch_launches, "model_api": api_launches,
         "model_api_int8": int8_launches, "cross_size": cross_launches,
-        **moe_launches, "encdec": enc_launches}
+        **moe_launches, "encdec": enc_launches, **hyb_launches,
+        "ssm": ssm_launches, "stablelm": stable_launches}
     # the shape each kernel's ms stands for: paged attention's decode
     # batch; flash's costliest prefill call (the long path's largest
     # group); LoRA's decode q projection at the engine's app-lora batch,
@@ -2716,7 +3182,11 @@ def main():
           "cross_size_peak_bytes": cross["max_memory_allocated_bytes"],
           **{f"{k}_decode_tok_per_s": v["decode_tok_per_s"]
              for k, v in moe_rows.items()},
-          "encdec_decode_tok_per_s": enc["decode_tok_per_s"]})
+          "encdec_decode_tok_per_s": enc["decode_tok_per_s"],
+          "hybrid_decode_tok_per_s": hyb["decode_tok_per_s"],
+          "hybrid_ring_decode_tok_per_s": hyb["ring"]["decode_tok_per_s"],
+          "ssm_decode_tok_per_s": ssm["decode_tok_per_s"],
+          "stablelm_decode_tok_per_s": stable["decode_tok_per_s"]})
     emit({"kernels": line})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

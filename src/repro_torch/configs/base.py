@@ -5,8 +5,7 @@ and the assigned input shapes.
 Every architecture gets a ``ModelConfig`` in ``repro_torch/configs/<id>.py``
 with the published numbers and a reduced CPU-test-sized variant of the
 same family.  Parameters are counted by building the port's init on the
-``meta`` device, which allocates nothing; a family the port cannot build
-yet raises ``NotImplementedError``.
+``meta`` device, which allocates nothing.
 """
 from __future__ import annotations
 
@@ -122,6 +121,9 @@ class ModelConfig:
 def _leaves(tree):
     if isinstance(tree, dict):
         for v in tree.values():
+            yield from _leaves(v)
+    elif isinstance(tree, (list, tuple)):
+        for v in tree:
             yield from _leaves(v)
     else:
         yield tree

@@ -121,13 +121,17 @@ __device__ __forceinline__ void bulk_load(void* dst, const void* src,
       : "memory");
 }
 
-// Where byte o of a dense box with RowBytes-wide rows (64 or 128) lies
+// Where byte o of a dense box with RowBytes-wide rows (32, 64 or 128) lies
 // once TMA has written it with the matching swizzle: the 16-byte chunk
-// bits [4, 7) are XORed with the row bits [7, 10).  ldmatrix reads 8 rows
-// at one logical chunk, and the XOR spreads them over distinct banks.
+// bits [4, 4 + w) are XORed with the row bits [7, 7 + w), w = 1, 2 or 3
+// (RowBytes / 16 = 2^w chunks a row).  ldmatrix reads 8 rows at one
+// logical chunk, and the XOR spreads them over distinct banks.  The box
+// must start at a multiple of 8 * RowBytes (the swizzle's period) in
+// shared memory.
 template <int RowBytes>
 __device__ __forceinline__ uint32_t swizzled(uint32_t o) {
-  static_assert(RowBytes == 64 || RowBytes == 128, "TMA swizzle width");
+  static_assert(RowBytes == 32 || RowBytes == 64 || RowBytes == 128,
+                "TMA swizzle width");
   return o ^ (((o >> 7) & (RowBytes / 16 - 1)) << 4);
 }
 
@@ -152,7 +156,8 @@ using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
 
 // A bf16 tensor as a tensor map: dims and box innermost first, strides in
 // bytes for dims 1.. (multiples of 16), zero fill outside; the swizzle
-// follows the box's row width (box[0] * 2 bytes: 64 or 128).
+// follows the box's row width (box[0] * 2 bytes: 32, 64 or 128; any other
+// width is refused).
 inline cudaError_t encode_map(CUtensorMap* map, const void* base, int rank,
                               const cuuint64_t* dims,
                               const cuuint64_t* strides,
@@ -169,9 +174,13 @@ inline cudaError_t encode_map(CUtensorMap* map, const void* base, int rank,
     encode = reinterpret_cast<EncodeTiled>(fn);
   }
   const cuuint32_t elem[4] = {1, 1, 1, 1};
-  const CUtensorMapSwizzle swizzle = box[0] * sizeof(bf16) == 128
-                                         ? CU_TENSOR_MAP_SWIZZLE_128B
-                                         : CU_TENSOR_MAP_SWIZZLE_64B;
+  CUtensorMapSwizzle swizzle;
+  switch (box[0] * sizeof(bf16)) {
+    case 128: swizzle = CU_TENSOR_MAP_SWIZZLE_128B; break;
+    case 64: swizzle = CU_TENSOR_MAP_SWIZZLE_64B; break;
+    case 32: swizzle = CU_TENSOR_MAP_SWIZZLE_32B; break;
+    default: return cudaErrorInvalidValue;
+  }
   const CUresult res = encode(
       map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, (cuuint32_t)rank,
       const_cast<void*>(base), dims, strides, box, elem,

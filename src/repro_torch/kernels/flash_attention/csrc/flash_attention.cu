@@ -13,7 +13,7 @@
 // read through transposed views with no copy.  Rows must start 16-byte
 // aligned (the wrapper checks base addresses and strides).  Query head
 // kvh * G + g reads KV head kvh (G = Hq / KVH).  float32 or bfloat16, the
-// same for all four tensors.
+// same for all four tensors.  Head dims 32, 64, 80, 128 and 160.
 //
 // Design.  The TPU grid (B, Hq, S/bq, S/bk) carried m/l/acc across its
 // sequential kv axis in VMEM.  Here one thread block per (batch, KV head,
@@ -29,8 +29,10 @@
 //   by 16-byte cp.async copies, rows padded by 16 bytes so ldmatrix reads
 //   no bank twice.  K and V tiles come by TMA into a two-stage ring of
 //   bf16 tiles: thread 0 asks for the next tile (4-D tensor maps over the
-//   strided (B, KVH, S, hd) views, made per call; zero fill past S; the
-//   64- or 128-byte swizzle, which ldmatrix undoes in its addressing) and
+//   strided (B, KVH, S, hd) views, made per call; zero fill past S; boxes
+//   of 64, 32 or 16 columns that cover hd exactly, each with the 128-, 64-
+//   or 32-byte swizzle of its row width, which ldmatrix undoes in its
+//   addressing) and
 //   the tile completes on its stage's mbarrier, so no warp stalls on
 //   issuing copies before its products, as it did with per-thread
 //   cp.async (a clock64 breakdown on the card).  A warp loads
@@ -159,6 +161,7 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
                        Strides vs, Strides os, float sm_scale, int causal) {
   constexpr int kQP = HD + 1;      // padded pitch of q and k rows
   constexpr int kDPer = HD / 16;   // output dims per thread
+  static_assert(HD % 16 == 0, "16 lanes share a row's output dims");
   extern __shared__ float smem[];
   float* q_s = smem;                        // [kRows][HD + 1]
   float* k_s = q_s + kRows * kQP;           // [kKeys][HD + 1]
@@ -312,11 +315,16 @@ __device__ __forceinline__ void split_pair(float x0, float x1, uint32_t& hi,
 }
 
 // bf16 staging: K and V tiles of kKeys rows by TMA in boxes kBoxW(HD)
-// elements wide (64 or 32: 128- or 64-byte rows, swizzled to match), a
-// two-stage ring each completing on its mbarrier; the q tile once by
-// cp.async, rows padded by 16 bytes.
+// elements wide, the widest of 64, 32 and 16 that divides HD (128-, 64- or
+// 32-byte rows, swizzled to match: hd 80 takes five boxes of 16, hd 160
+// five of 32), a two-stage ring each completing on its mbarrier; the q
+// tile once by cp.async, rows padded by 16 bytes.
 template <int HD>
-constexpr int kBoxW = HD < 64 ? HD : 64;
+constexpr int kBoxW = HD % 64 == 0 ? 64 : HD % 32 == 0 ? 32 : 16;
+// the boxes cover every column of a row: a head dim that no box width
+// divides would otherwise leave its last columns unstaged
+template <int HD>
+constexpr bool kBoxesCover = HD % 16 == 0 && HD / kBoxW<HD> * kBoxW<HD> == HD;
 template <int HD>
 constexpr int kTileBytes = kKeys * HD * (int)sizeof(bf16);  // K or V tile
 template <int HD>
@@ -347,6 +355,9 @@ __global__ void flash_attention_tc_kernel(
   constexpr int kDT = HD / 8;            // n8 tiles of the output
   constexpr int kNT = kKeys / 8;         // n8 tiles of the scores
   constexpr int kBoxes = HD / kBoxW<HD>;
+  static_assert(kBoxesCover<HD>, "the TMA boxes must cover the head dim");
+  static_assert(kKS * 16 == HD && kDT % 2 == 0,
+                "the k16 steps and the n8 pairs must cover the head dim");
   extern __shared__ __align__(16) unsigned char smem_raw[];
   unsigned char* ring =
       smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
@@ -593,8 +604,14 @@ int dispatch_hd(int hd, int dtype, const void* q, const void* k,
     case 64:
       return launch<64>(dtype, q, k, v, out, B, KVH, S, G, qs, ks, vs, os,
                         sm_scale, causal, stream);
+    case 80:
+      return launch<80>(dtype, q, k, v, out, B, KVH, S, G, qs, ks, vs, os,
+                        sm_scale, causal, stream);
     case 128:
       return launch<128>(dtype, q, k, v, out, B, KVH, S, G, qs, ks, vs, os,
+                         sm_scale, causal, stream);
+    case 160:
+      return launch<160>(dtype, q, k, v, out, B, KVH, S, G, qs, ks, vs, os,
                          sm_scale, causal, stream);
     default:
       return (int)cudaErrorInvalidValue;

@@ -16,7 +16,7 @@ import torch
 from repro_torch.kernels import _build
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "flash_attention.cu"
-HEAD_DIMS = (32, 64, 128)
+HEAD_DIMS = (32, 64, 80, 128, 160)
 MAX_GROUP = 64  # query heads per KV head (kRows in the source)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 

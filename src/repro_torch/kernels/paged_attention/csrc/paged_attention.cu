@@ -16,7 +16,8 @@
 //   k/v new      (B, KVH, hd)                same type as q (fused step)
 //   kv_len       (B,)                        int32 (fused step)
 //   out          (B, Hq, hd)                 same type as q
-// Query head kvh * G + g reads KV head kvh (G = Hq / KVH <= 16).
+// Query head kvh * G + g reads KV head kvh (G = Hq / KVH <= 16).  Head dims
+// 32, 64, 80, 128 and 160.
 //
 // Two modes, one kernel.  Attend only: attend over seq_lens[b] positions.
 // Fused decode step: first store the new token's k/v row at position
@@ -52,7 +53,9 @@
 //   in bf16 by 16-byte cp.async copies into a three-stage ring of tiles
 //   (rows padded by 16 bytes so ldmatrix reads no bank twice), so two
 //   tiles are in flight while one is computed.  The G query rows, padded to 16 with zeros, are
-//   the A operand of mma.sync m16n8k16 for q.k^T (K read by ldmatrix);
+//   the A operand of mma.sync m16n8k16 for q.k^T (K read by ldmatrix; at
+//   G = 1, zamba2's shared attention, 15 of the 16 rows are padding, which
+//   wastes tensor-core work, not bytes);
 //   each warp runs its own online softmax on the accumulator fragments
 //   (p = expf(s - m)), and P @ V takes P as a bf16 hi/lo pair,
 //   hi = bf16(p), lo = bf16(p - hi), so P keeps about 2^-17 and the output
@@ -60,8 +63,9 @@
 //   split the four warps' (m, l, acc) are merged in warp order.
 //
 //   float32, CUDA cores.  The body of the first port of this kernel: 32-
-//   token tiles staged as fp32 in shared memory, all 16-byte loads of a
-//   tile issued before any is used, scores and P @ V from shared memory.
+//   token tiles staged as fp32 in (dynamic) shared memory, all 16-byte
+//   loads of a tile issued before any is used, scores and P @ V from
+//   shared memory.
 //   TF32 tensor cores would lose the fp32 tolerance.
 //
 // Bound.  The kernel must read sum_b seq_len_b * KVH * hd * 2 (K and V) *
@@ -194,6 +198,8 @@ __device__ void finish(const Params& p, int b, int h, int split,
   constexpr int kChunk = 32;
   constexpr int kElems = kMaxG * HD / kThreads;
   constexpr int kGroup = 64 / kElems;  // splits loaded at once: 64 registers
+  static_assert(kElems * kThreads == kMaxG * HD && kGroup >= 1,
+                "the combine's elements split evenly over the threads");
   __shared__ float M_s[kMaxG], L_s[kMaxG];
   __shared__ float w_s[kChunk][kMaxG], ls_s[kChunk][kMaxG];
   const int warp = tid >> 5;
@@ -304,6 +310,8 @@ paged_attention_tc_kernel(const Params p) {
   constexpr int kChunks = HD / 8;  // 16-byte pieces per row
   constexpr int kKS = HD / 16;     // k16 steps of q . k
   constexpr int kDT = HD / 8;      // n8 tiles of the output
+  static_assert(kKS * 16 == HD && kDT % 2 == 0,
+                "the k16 steps and the n8 pairs must cover the head dim");
   extern __shared__ __align__(16) unsigned char smem_raw[];
   bf16* ring = reinterpret_cast<bf16*>(smem_raw);
   bf16* q_s = ring + kStages * kStageElems<HD>;  // [16][kPitch]
@@ -475,6 +483,9 @@ paged_attention_tc_kernel(const Params p) {
   // merge the four warps' (m, l, acc) in warp order, through the ring:
   // each row's max, weights and sum by one thread, then the elements
   constexpr int kOP = HD + 4;  // wo row pitch, off the 32-bank period
+  static_assert((3 * 4 * kMaxG + 4 * kMaxG * kOP + kMaxG * HD) * 4 <=
+                    kStages * kStageElems<HD> * (int)sizeof(bf16),
+                "the merge fits in the ring");
   cp_async_wait<0>();
   __syncthreads();
   float* wm = reinterpret_cast<float*>(ring);  // [4][16]
@@ -531,6 +542,14 @@ paged_attention_tc_kernel(const Params p) {
 
 constexpr int kTile32 = 32;  // tokens staged per iteration (= warp size)
 
+// q, K, V and P tiles in dynamic shared memory: 53.5 KB at hd 160, past
+// the 48 KB a block may hold statically
+template <int HD>
+constexpr int f32_smem_bytes() {
+  return (kMaxG * HD + 2 * kTile32 * (HD + 1) + kMaxG * kTile32) *
+         (int)sizeof(float);
+}
+
 template <int HD>
 __global__ void __launch_bounds__(kThreads)
 paged_attention_f32_kernel(const Params p) {
@@ -542,10 +561,11 @@ paged_attention_f32_kernel(const Params p) {
   constexpr int kLoads = kTile32 * kChunks / kThreads;  // per thread, per tile
   static_assert(kTile32 * kChunks % kThreads == 0, "tile must split evenly");
   static_assert(kTile32 * kRow >= kMaxG * HD, "k_s holds the partial");
-  __shared__ float q_s[kMaxG * HD];
-  __shared__ float k_s[kTile32 * kRow];
-  __shared__ float v_s[kTile32 * kRow];
-  __shared__ float p_s[kMaxG * kTile32];
+  extern __shared__ __align__(16) float smem_f32[];
+  float* q_s = smem_f32;                  // [kMaxG * HD]
+  float* k_s = q_s + kMaxG * HD;          // [kTile32 * kRow]
+  float* v_s = k_s + kTile32 * kRow;      // [kTile32 * kRow]
+  float* p_s = v_s + kTile32 * kRow;      // [kMaxG * kTile32]
   __shared__ int page_s[kTile32];
   __shared__ float m_s[kMaxG];
   __shared__ float l_s[kMaxG];
@@ -704,7 +724,12 @@ int launch(int dtype, const Params& p, int B, cudaStream_t stream) {
     }
     paged_attention_tc_kernel<HD><<<grid, kThreads, smem, stream>>>(p);
   } else {
-    paged_attention_f32_kernel<HD><<<grid, kThreads, 0, stream>>>(p);
+    const size_t smem = f32_smem_bytes<HD>();
+    static bool configured = false;
+    const cudaError_t err =
+        allow_smem(paged_attention_f32_kernel<HD>, smem, configured);
+    if (err != cudaSuccess) return (int)err;
+    paged_attention_f32_kernel<HD><<<grid, kThreads, smem, stream>>>(p);
   }
   return (int)cudaGetLastError();
 }
@@ -768,8 +793,12 @@ int paged_attention_split_fwd(const void* q, void* k_pages, void* v_pages,
       return launch<32>(dtype, p, B, s);
     case 64:
       return launch<64>(dtype, p, B, s);
+    case 80:
+      return launch<80>(dtype, p, B, s);
     case 128:
       return launch<128>(dtype, p, B, s);
+    case 160:
+      return launch<160>(dtype, p, B, s);
     default:
       return (int)cudaErrorInvalidValue;
   }

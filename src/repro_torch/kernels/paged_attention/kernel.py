@@ -22,7 +22,7 @@ import torch
 from repro_torch.kernels import _build
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "paged_attention.cu"
-HEAD_DIMS = (32, 64, 128)
+HEAD_DIMS = (32, 64, 80, 128, 160)
 MAX_GROUP = 16  # query heads per KV head (kMaxG in the source)
 SPLIT_TILE = 64  # positions per bf16 tile (kTile): split lengths' multiple
 # positions per split block (flash-decoding), fixed from position 0 so a

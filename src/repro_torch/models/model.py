@@ -1,6 +1,7 @@
-"""Unified Model API — the port of ``repro.models.model`` for the dense
-family (llama/qwen, qwen2-vl's backbone), the MoE family (mixtral, dbrx)
-and the encoder-decoder (seamless-m4t).
+"""Unified Model API — the port of ``repro.models.model`` for every family:
+dense (llama/qwen, qwen2-vl's backbone), MoE (mixtral, dbrx), hybrid
+(zamba2: ``models.mamba2``), SSM (xlstm: ``models.xlstm``) and the
+encoder-decoder (seamless-m4t).
 
 ``build_model(cfg)`` returns a ``Model`` with:
   - init(gen, device=None) -> params (fp32, drawn from a torch generator)
@@ -12,9 +13,10 @@ and the encoder-decoder (seamless-m4t).
 
 Both entry points take ``attn_impl`` (``models.transformer``): on a CUDA
 tensor, prefill runs the flash-attention kernel and decode the
-paged-attention kernel.  The hybrid and SSM families and training raise
-``NotImplementedError`` naming the ``ROADMAP.md`` item that ports them; the
-reference's sharding argument is not taken (the mesh code comes last).
+paged-attention kernel (the SSM family has no attention and runs no
+kernel).  Training raises ``NotImplementedError`` naming the
+``ROADMAP.md`` item that ports it; the reference's sharding argument is
+not taken (the mesh code comes last).
 
 ``params_from_numpy`` and ``cache_from_numpy`` carry the reference's
 trees (as ``jax.device_get`` returns them) across, checked against this
@@ -31,15 +33,9 @@ from repro_torch.bridge import to_torch
 from repro_torch.configs.base import ModelConfig, ShapeConfig
 from repro_torch.models import layers as L
 
-# family -> the ROADMAP.md section 1 item that ports it
-NOT_PORTED = {
-    "hybrid": "ROADMAP.md §1 item 1 (hybrid: models/mamba2.py, after flash "
-              "and paged attention at head dim 80)",
-    "ssm": "ROADMAP.md §1 item 2 (SSM: models/xlstm.py)",
-}
-TRAINING_ITEM = ("ROADMAP.md §1 item 3 (training: dense_train_loss, "
-                 "moe_train_loss, encdec_train_loss, cross_entropy, "
-                 "training/, checkpoint/)")
+TRAINING_ITEM = ("ROADMAP.md §1 item 1 (training: dense_train_loss, "
+                 "moe_train_loss, zamba_train_loss, xlstm_train_loss, "
+                 "encdec_train_loss, cross_entropy, training/, checkpoint/)")
 
 
 class Model:
@@ -102,13 +98,51 @@ class Model:
                             self.compute_dtype)
 
 
+def _meta(shape, dtype=torch.float32) -> torch.Tensor:
+    return torch.empty(shape, dtype=dtype, device="meta")
+
+
+def _zamba_cache_struct(cfg: ModelConfig, B: int, S: int,
+                        dtype: torch.dtype) -> dict:
+    from repro_torch.models.mamba2 import mamba_dims
+
+    _, H, N, conv_ch, _ = mamba_dims(cfg)
+    n_super, every = (cfg.num_layers // cfg.shared_attn_every,
+                      cfg.shared_attn_every)
+    W = min(S, cfg.sliding_window) if cfg.sliding_window else S
+    kv = (n_super, B, W, cfg.num_kv_heads, cfg.resolved_head_dim)
+    return {
+        "attn": {"k": _meta(kv, dtype), "v": _meta(kv, dtype)},
+        "conv": _meta((n_super, every, B, cfg.ssm_conv_width - 1, conv_ch),
+                      dtype),
+        "ssm": _meta((n_super, every, B, H, cfg.ssm_head_dim, N)),
+    }
+
+
+def _xlstm_state_struct(cfg: ModelConfig, B: int) -> tuple:
+    from repro_torch.models.xlstm import _dims
+
+    _, _, H, dk, dh, _ = _dims(cfg)
+    return tuple(
+        (_meta((B, H, dk, dk)), _meta((B, H, dk)), _meta((B, H)))
+        if i % 2 == 0 else tuple(_meta((B, H, dh)) for _ in range(4))
+        for i in range(cfg.num_layers))
+
+
 def cache_struct(cfg: ModelConfig, B: int, S: int,
-                 dtype: torch.dtype = L.COMPUTE_DTYPE) -> dict:
+                 dtype: torch.dtype = L.COMPUTE_DTYPE):
     """The decode cache's tensors on the ``meta`` device: the stacked KV
-    cache of ``layers.init_kv_cache`` (dense, moe), or the encoder-decoder's
-    ``k``/``v`` (Ld, B, S, H, hd) with the cross-attention ``xk``/``xv``
-    (Ld, B, S, H, hd) (a source as long as the target, as in the
-    reference's specs)."""
+    cache of ``layers.init_kv_cache`` (dense, moe); the hybrid's shared-block
+    ``attn`` K/V (n_super, B, W, KVH, hd) with the mamba ``conv`` (n_super,
+    every, B, W_conv - 1, C) and fp32 ``ssm`` (n_super, every, B, H, P, N)
+    states; the SSM family's per-block fp32 state tuples; or the
+    encoder-decoder's ``k``/``v`` (Ld, B, S, H, hd) with the
+    cross-attention ``xk``/``xv`` (Ld, B, S, H, hd) (a source as long as
+    the target, as in the reference's specs)."""
+    if cfg.family == "hybrid":
+        return _zamba_cache_struct(cfg, B, S, dtype)
+    if cfg.family == "ssm":
+        return _xlstm_state_struct(cfg, B)
     if cfg.family != "encdec":
         return L.init_kv_cache(cfg, cfg.num_layers, B, S, cfg.num_kv_heads,
                                dtype=dtype, device="meta")
@@ -138,6 +172,22 @@ def build_model(cfg: ModelConfig,
             "prefill": M.moe_prefill,
             "decode_step": M.moe_decode_step,
         }, compute_dtype)
+    if cfg.family == "hybrid":
+        from repro_torch.models import mamba2 as Z
+
+        return Model(cfg, {
+            "init": Z.init_zamba,
+            "prefill": Z.zamba_prefill,
+            "decode_step": Z.zamba_decode_step,
+        }, compute_dtype)
+    if cfg.family == "ssm":
+        from repro_torch.models import xlstm as X
+
+        return Model(cfg, {
+            "init": X.init_xlstm,
+            "prefill": X.xlstm_prefill,
+            "decode_step": X.xlstm_decode_step,
+        }, compute_dtype)
     if cfg.family == "encdec":
         from repro_torch.models import encdec as E
 
@@ -146,10 +196,6 @@ def build_model(cfg: ModelConfig,
             "prefill": E.encdec_prefill,
             "decode_step": E.encdec_decode_step,
         }, compute_dtype)
-    if cfg.family in NOT_PORTED:
-        raise NotImplementedError(
-            f"{cfg.name}: the {cfg.family} family is not ported yet: "
-            f"{NOT_PORTED[cfg.family]}")
     raise ValueError(f"unknown family {cfg.family}")
 
 
@@ -162,8 +208,21 @@ def _flat(tree, prefix=""):
     if isinstance(tree, dict):
         for k in sorted(tree):
             yield from _flat(tree[k], f"{prefix}/{k}")
+    elif isinstance(tree, (list, tuple)):
+        for i, t in enumerate(tree):
+            yield from _flat(t, f"{prefix}/{i}")
     else:
         yield prefix, tree
+
+
+def _copy(tree):
+    """A numpy tree with every array copied (no tensor aliases the
+    caller's arrays)."""
+    if isinstance(tree, dict):
+        return {k: _copy(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_copy(v) for v in tree)
+    return np.array(tree)
 
 
 def _check(what: str, got: dict, want: dict, exact_dims: bool = True) -> None:
@@ -189,15 +248,22 @@ def params_from_numpy(cfg: ModelConfig, tree: dict, device) -> dict:
     return to_torch(tree, device=device)
 
 
-def cache_from_numpy(cfg: ModelConfig, tree: dict, device,
-                     compute_dtype: torch.dtype = L.COMPUTE_DTYPE) -> dict:
+def cache_from_numpy(cfg: ModelConfig, tree, device,
+                     compute_dtype: torch.dtype = L.COMPUTE_DTYPE):
     """A reference decode cache (numpy: ``k``/``v`` (L, B, S, KVH, hd) in
     the compute dtype, or int8 codes with fp32 scales; the encoder-decoder's
-    also ``xk``/``xv``) as tensors on ``device``, after checking its keys,
-    dtypes, layers and heads against this config (B and the lengths are the
-    tree's own).  The tensors never alias the tree's arrays: decode writes
-    them in place."""
-    B, S = tree["k"].shape[1:3]
+    also ``xk``/``xv``; the hybrid's ``{attn: {k, v}, conv, ssm}``; the SSM
+    family's tuple of per-block state tuples) as tensors on ``device``,
+    after checking its keys, dtypes and shapes against this config (B and
+    the lengths are the tree's own; the KV caches' layers and heads are
+    checked, the hybrid's and SSM's every dim).  The tensors never alias
+    the tree's arrays: decode writes them in place."""
+    if cfg.family == "ssm":
+        B, S = tree[0][0].shape[0], 0
+    else:
+        B, S = (tree["attn"] if cfg.family == "hybrid" else tree)[
+            "k"].shape[1:3]
     want = cache_struct(cfg, B, S, compute_dtype)
-    _check("cache", tree, want, exact_dims=False)
-    return to_torch({k: np.array(v) for k, v in tree.items()}, device=device)
+    _check("cache", tree, want,
+           exact_dims=cfg.family in ("hybrid", "ssm"))
+    return to_torch(_copy(tree), device=device)

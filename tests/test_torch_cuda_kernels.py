@@ -49,6 +49,8 @@ SHAPES = [  # B, Hq, KVH, hd, page, pages_per_seq
     (4, 16, 2, 32, 16, 3),    # narrow G=8
     (16, 32, 4, 64, 16, 16),  # TinyLlama-1.1B, max_len 256
     (2, 32, 2, 128, 7, 5),    # G=16, odd page size
+    (2, 4, 4, 80, 16, 5),     # zamba2's shared attention head dim, G=1
+    (3, 16, 4, 160, 64, 3),   # stablelm-12b's head dim, G=4
 ]
 
 
@@ -134,8 +136,8 @@ def _decode_inputs(kv_len, Hq, KVH, hd, page, dtype, dev, seed=11, extra=1):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("G", [1, 2, 8])
-@pytest.mark.parametrize("hd", [32, 64, 128])
+@pytest.mark.parametrize("G", [1, 2, 4, 8])
+@pytest.mark.parametrize("hd", [32, 64, 80, 128, 160])
 def test_paged_decode_fused_matches_scatter_then_ref(card, hd, G, dtype):
     """One fused launch against write_token_to_pages + the plain version:
     the pages bitwise, the output at the kernel tolerances (bf16 also
@@ -318,6 +320,8 @@ FLASH_SHAPES = [  # B, Hq, KVH, S, hd
     (2, 32, 4, 129, 64),   # TinyLlama heads, one past a tile
     (3, 32, 4, 1, 64),     # a single position
     (1, 32, 4, 17, 64),
+    (2, 32, 32, 129, 80),  # zamba2's shared attention: G = 1, hd 80
+    (2, 32, 8, 100, 160),  # stablelm-12b: G = 4, hd 160
 ]
 
 
@@ -369,8 +373,8 @@ FLASH_EDGE_S = [1, 15, 63, 65, 1468, 2048]  # around the 64-key tiles
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("G", [1, 2, 8])
-@pytest.mark.parametrize("hd", [32, 64, 128])
+@pytest.mark.parametrize("G", [1, 2, 4, 8])
+@pytest.mark.parametrize("hd", [32, 64, 80, 128, 160])
 @pytest.mark.parametrize("S", FLASH_EDGE_S)
 def test_flash_attention_kernel_tile_edges(card, S, hd, G, dtype):
     """Every head dim and group size at lengths on both sides of the
@@ -388,8 +392,8 @@ def test_flash_attention_kernel_tile_edges(card, S, hd, G, dtype):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("G", [1, 2, 8])
-@pytest.mark.parametrize("hd", [32, 64, 128])
+@pytest.mark.parametrize("G", [1, 2, 4, 8])
+@pytest.mark.parametrize("hd", [32, 64, 80, 128, 160])
 def test_flash_attention_kernel_prefix_is_bitwise_per_shape(card, hd, G,
                                                             dtype):
     """The prefix property at every head dim and group size: a causal
@@ -580,7 +584,8 @@ def test_batched_lora_kernel_rejects_bad_inputs(card):
 # the dense Model API's kernel routes: one page of S tokens per sequence
 # ---------------------------------------------------------------------------
 
-ONE_PAGE_HEADS = [(32, 4, 64), (64, 8, 128)]  # TinyLlama; qwen2-72b
+# TinyLlama; qwen2-72b; zamba2's shared attention (G = 1); stablelm-12b
+ONE_PAGE_HEADS = [(32, 4, 64), (64, 8, 128), (32, 32, 80), (32, 8, 160)]
 
 
 def _one_page_inputs(B, Hq, KVH, hd, S, dtype, dev, seed=11):
@@ -707,7 +712,8 @@ def test_flash_attention_moe_and_encdec_shapes(card, shape, causal, dtype):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("heads", [(16, 16, 64), (48, 8, 128)])
+@pytest.mark.parametrize("heads", [(16, 16, 64), (48, 8, 128),
+                                   (32, 32, 80), (32, 8, 160)])
 def test_paged_attend_only_over_a_cross_cache(card, heads, dtype):
     """The encoder-decoder's cross-attention at decode: a layer's xk/xv
     (B, 256, H, hd) as B pages of 256 frames, lengths below the page for
@@ -802,4 +808,118 @@ def test_windowed_decode_runs_the_ring_on_paged(card, dtype):
         for name in ("k", "v"):
             assert torch.equal(caches["cuda"][name][0],
                                caches["ref"][name][0])
+    assert T.decode_route(cfg, got, "auto") == "paged"
+
+
+# ---------------------------------------------------------------------------
+# head dims 80 (zamba2's shared attention) and 160 (stablelm-12b)
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape,causal", [
+    ((4, 32, 32, 512, 80), True),    # zamba2 prefill: G = 1
+    ((1, 32, 32, 4080, 80), True),   # zamba2's ring run
+    ((2, 32, 32, 300, 80), False),
+    ((4, 32, 8, 256, 160), True),    # stablelm-12b prefill: G = 4
+    ((2, 32, 8, 300, 160), False)])
+def test_flash_attention_hd80_hd160_shapes(card, shape, causal, dtype):
+    q, k, v = _flash_inputs(*shape, getattr(torch, dtype), card)
+    got = flash_attention(q, k, v, causal=causal, impl="cuda")
+    torch.cuda.synchronize()
+    want = flash_attention_ref(q, k, v, causal=causal)
+    torch.testing.assert_close(got.float(), want.float(), **TOL[dtype])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("heads", [(32, 32, 80), (32, 8, 160)])
+def test_paged_attend_only_over_a_full_ring(card, heads, dtype):
+    """A sliding window's ring of 4,096 slots once a row has reached it
+    (zamba2's decode past its window): the attend-only launch over all
+    4,096 slots and over fewer, against the plain version; the fused step
+    at the ring's last slot too."""
+    Hq, KVH, hd = heads
+    q, kn, vn, k, v, tables, _ = _one_page_inputs(
+        2, Hq, KVH, hd, 4096, getattr(torch, dtype), card)
+    lens = torch.tensor([4096, 3000], dtype=torch.int32, device=card)
+    got = paged_attention(q, k, v, tables, lens, impl="cuda")
+    torch.cuda.synchronize()
+    want = paged_attention_ref(q, k, v, tables, lens)
+    torch.testing.assert_close(got.float(), want.float(), **TOL[dtype])
+    kv_len = lens - 1
+    want_k, want_v = write_token_to_pages(k.clone(), v.clone(), tables,
+                                          kv_len, kn, vn)
+    want = paged_attention_ref(q, want_k, want_v, tables, lens)
+    o, _, _ = paged_decode_step(q, kn, vn, k, v, tables, kv_len, impl="cuda")
+    torch.cuda.synchronize()
+    assert torch.equal(k, want_k) and torch.equal(v, want_v)
+    torch.testing.assert_close(o.float(), want.float(), **TOL[dtype])
+    if dtype == "bfloat16":
+        assert bf16_ulp_err(o, want) <= 1.0
+
+
+def _chain_close(got, want, dtype):
+    """A whole chain's logits: fp32 at the kernel tolerance; bf16, where a
+    chain of six hops drifts by a bf16 ulp or two a hop, within three
+    times the per-hop bound (2e-2 + 2e-2 |x| + one bf16 ulp at the row's
+    largest logit), as chip_smoke.py holds whole bf16 chains."""
+    got, want = got.float(), want.float()
+    if dtype == "float32":
+        torch.testing.assert_close(got, want, **TOL[dtype])
+        return
+    mag = want.abs().amax(dim=-1, keepdim=True)
+    _, e = torch.frexp(mag)
+    bound = 2e-2 + 2e-2 * want.abs() + torch.ldexp(torch.ones_like(mag),
+                                                   e - 8)
+    assert float(((got - want).abs() / bound).max()) <= 3.0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_hybrid_decode_crosses_the_ring_on_paged(card, dtype):
+    """zamba2's reduced config widened to head dim 80 (d_model 320, 4/4
+    heads: G = 1): prefill of 28 tokens on flash (one launch per shared
+    block application), then 8 decode steps across the ring of 32 (the
+    fused step, then the ring's insert and the attend-only launch, one
+    launch per application a step), against the kernels' plain versions
+    (``_chain_close``)."""
+    from repro_torch.configs import get_reduced_config
+    from repro_torch.models import transformer as T
+    from repro_torch.models.model import build_model
+
+    cfg = get_reduced_config("zamba2-2.7b").replace(
+        d_model=320, num_heads=4, num_kv_heads=4, d_ff=256)
+    assert cfg.resolved_head_dim == 80
+    n_super = cfg.num_layers // cfg.shared_attn_every
+    model = build_model(cfg, compute_dtype=getattr(torch, dtype))
+    params = model.init(torch.Generator(card).manual_seed(0))
+    g = torch.Generator(card).manual_seed(1)
+    tokens = torch.randint(0, cfg.vocab_size, (2, 28), generator=g,
+                           device=card, dtype=torch.int32)
+    lens = torch.tensor([28, 24], dtype=torch.int32, device=card)
+    before = flash_kernel.launches
+    out = {impl: model.prefill(params, {"tokens": tokens,
+                                        "prompt_lens": lens},
+                               max_len=48, attn_impl=impl)
+           for impl in ("cuda", "ref")}
+    torch.cuda.synchronize()
+    assert flash_kernel.launches == before + n_super
+    _chain_close(out["cuda"][0], out["ref"][0], dtype)
+    caches = {impl: out[impl][1] for impl in out}
+    assert caches["cuda"]["attn"]["k"].shape[2] == 32
+    for j in range(8):  # row 0 reaches the ring's end at the fifth step
+        batch = {"tokens": torch.randint(0, cfg.vocab_size, (2, 1),
+                                         generator=g, device=card,
+                                         dtype=torch.int32),
+                 "kv_len": lens + j}
+        before = t_kernel.launches
+        got, _ = model.decode_step(params, caches["cuda"], batch,
+                                   attn_impl="cuda")
+        want, _ = model.decode_step(params, caches["ref"], batch,
+                                    attn_impl="ref")
+        torch.cuda.synchronize()
+        assert t_kernel.launches == before + n_super
+        _chain_close(got, want, dtype)
     assert T.decode_route(cfg, got, "auto") == "paged"

@@ -92,6 +92,17 @@ PORTED_NAMES = {
                                "moe_decode_step"),
     "repro_torch.models.moe_dispatch": ("moe_dispatch_mlp",
                                         "dropped_fraction"),
+    "repro_torch.models.mamba2": ("mamba_dims", "init_mamba_layer",
+                                  "init_zamba", "_conv1d_causal", "ssd_scan",
+                                  "mamba_forward", "shared_attn_block",
+                                  "_zamba_trunk", "zamba_prefill",
+                                  "zamba_decode_step"),
+    "repro_torch.models.xlstm": ("_dims", "init_mlstm_block",
+                                 "init_slstm_block", "init_xlstm",
+                                 "_mlstm_parallel", "_mlstm_step",
+                                 "mlstm_block", "mlstm_final_state",
+                                 "_slstm_scan", "slstm_block", "_trunk",
+                                 "xlstm_prefill", "xlstm_decode_step"),
     "repro_torch.models.encdec": ("init_enc_layer", "init_dec_layer",
                                   "init_encdec", "bidir_attention", "_mlp",
                                   "encode", "_dec_layer_full",

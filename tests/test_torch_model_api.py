@@ -55,7 +55,6 @@ HALF_WINDOW = 1e-6  # |x/scale - (n + 0.5)| below which a code may differ
 MAX_CODE_FLIPS = 1e-3  # of all codes
 DENSE = ("tinyllama-1.1b", "qwen1.5-32b", "qwen2-72b", "stablelm-12b",
          "qwen2-vl-7b", "blockllm-demo")
-NOT_PORTED = {"hybrid": "zamba2-2.7b", "ssm": "xlstm-125m"}
 
 # case -> (config, fields replaced, B, S, prompt_lens, max_len, kv_len per
 # decode step (None: prompt_lens + j), decode steps)
@@ -271,7 +270,7 @@ def test_shapes_and_applicable_shapes_equal_the_reference():
 
 @pytest.mark.parametrize("name", DENSE + (
     "blockllm-demo-large", "mixtral-8x22b", "dbrx-132b",
-    "seamless-m4t-medium"))
+    "seamless-m4t-medium", "zamba2-2.7b", "xlstm-125m"))
 def test_param_count_equals_the_reference_at_full_size(name):
     from repro.configs import get_config as j_get
 
@@ -284,14 +283,27 @@ def test_param_count_equals_the_reference_at_full_size(name):
     assert shapes["embed"].device.type == "meta"
 
 
-@pytest.mark.parametrize("family", sorted(NOT_PORTED))
-def test_unported_families_raise(family):
-    cfg = get_config(NOT_PORTED[family])
-    assert cfg.family == family
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        build_model(cfg)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        cfg.param_count()
+@pytest.mark.parametrize("name", list_configs())
+def test_build_model_builds_every_registered_config(name):
+    """Every registered config builds, at its published size, with meta
+    shapes equal to the reference's parameter tree (the leaves' paths,
+    shapes and dtypes)."""
+    from repro.configs import get_config as j_get
+    from repro.models.model import build_model as j_build
+
+    cfg = get_config(name)
+    model = build_model(cfg)
+    assert model.cfg is cfg
+    ref_leaves = jax.tree_util.tree_leaves_with_path(
+        j_build(j_get(name)).param_shapes())
+    want = {jax.tree_util.keystr(p): (tuple(x.shape), str(x.dtype))
+            for p, x in ref_leaves}
+    got_leaves = jax.tree_util.tree_leaves_with_path(
+        model.param_shapes(), is_leaf=lambda x: isinstance(x, torch.Tensor))
+    got = {jax.tree_util.keystr(p): (tuple(x.shape),
+                                     str(x.dtype).split(".")[-1])
+           for p, x in got_leaves}
+    assert got == want
 
 
 def test_training_raises_until_ported():
@@ -560,17 +572,25 @@ def test_decode_attention_matches_jax_fp32(window, kv_chunk):
 
 
 def test_kernel_gaps_raise_not_implemented():
-    """Under the kernel route: head dim 160 (stablelm-12b) and a prompt
-    longer than a sliding window have no kernel; the route is chosen
-    before any launch."""
+    """Under the kernel route: head dims 80 (zamba2's shared attention) and
+    160 (stablelm-12b) route to the kernels; a head dim the kernels still
+    lack (96) and a prompt longer than a sliding window have no kernel;
+    the route is chosen before any launch."""
     stablelm = get_config("stablelm-12b")
-    assert stablelm.resolved_head_dim == 160
+    zamba = get_config("zamba2-2.7b")
+    assert (stablelm.resolved_head_dim, zamba.resolved_head_dim) == (160, 80)
     x = torch.zeros(1, 1, 1)
-    with pytest.raises(NotImplementedError, match="head dim 160"):
-        T.decode_route(stablelm, x, "cuda")
-    q = torch.zeros(1, 4, 2, 160)
-    with pytest.raises(NotImplementedError, match="head dim 160"):
-        T.prefill_attention(q, q, q, stablelm, "cuda")
+    for cfg in (stablelm, zamba):
+        hd = cfg.resolved_head_dim
+        assert T.decode_route(cfg, x, "cuda") == "paged"
+        assert T.prefill_route(cfg, torch.zeros(1, 4, 2, hd),
+                               "cuda") == "flash"
+    missing = stablelm.replace(head_dim=96)
+    with pytest.raises(NotImplementedError, match="head dim 96"):
+        T.decode_route(missing, x, "cuda")
+    q = torch.zeros(1, 4, 2, 96)
+    with pytest.raises(NotImplementedError, match="head dim 96"):
+        T.prefill_attention(q, q, q, missing, "cuda")
     windowed = get_config("tinyllama-1.1b").replace(sliding_window=64)
     q = torch.zeros(1, 65, 2, 64)  # S = 65 > the window of 64
     for impl in ("cuda", "ref"):
