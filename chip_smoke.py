@@ -135,7 +135,26 @@ script exits non-zero without printing a result:
    stablelm -- stablelm-12b's widths (head dim 160, G = 4) cut to 2
    layers, 4 prompts padded to 256, 32 steps: flash 2, paged 64, held
    against ref.  The kernels phase holds flash and paged at these shapes
-   too.
+   too;
+11. training and checkpoints: train_dense -- TinyLlama-1.1B whole from
+   the port's init (seed 0), 8 x 512-token batches of the data pipeline,
+   the default AdamW in bf16 compute: 12 steps, then 4 at microbatches=2
+   with bf16 gradients, an async checkpoint after step 8; no kernel
+   launched (the train loss's attention on the plain route, counted once
+   a layer a forward), every loss finite, the loss of step 1's batch
+   fallen by ``TRAIN_FIXED_DROP``; step wall, tokens/s, model FLOPs and
+   their share of the bf16 peak, peak memory, two profiled steps;
+   train_resume -- that checkpoint restored into fresh tensors and steps
+   9-12 trained again, losses and parameters bitwise the uninterrupted
+   run's, then a SIGTERM to the process writing a blocking checkpoint;
+   train_parity -- one fp32 ``value_and_grad`` on the card against the
+   host's CPU (TinyLlama's widths at 2 layers and a reduced config of each
+   other family): loss within 1e-5, every gradient within 1e-4 in
+   relative L2; train_handoff -- the trained weights registered in a
+   fresh zoo with a LoRA app, ``profile_block``, 8 requests served through
+   the three kernels (launches equal to the executor's counters), the
+   base app's tokens equal to the Model API's on a fresh copy of the
+   weights at a clear margin.
 
 The line before the last two gives each kernel's launches on the main
 paths, its largest error against its plain version at their shapes, and
@@ -149,6 +168,9 @@ exits non-zero before printing anything.
 import dataclasses
 import gc
 import json
+import os
+import shutil
+import signal
 import subprocess
 import sys
 import time
@@ -161,7 +183,11 @@ sys.path.insert(0, str(ROOT / "src"))
 
 import torch  # noqa: E402
 
-from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.checkpoint import (  # noqa: E402
+    Checkpointer,
+    install_preemption_hook,
+)
+from repro_torch.configs import get_config, get_reduced_config  # noqa: E402
 from repro_torch.core import peft  # noqa: E402
 from repro_torch.core.peft import shared_param_fraction  # noqa: E402
 from repro_torch.core.blocks import (  # noqa: E402
@@ -179,6 +205,7 @@ from repro_torch.core.stitching import (  # noqa: E402
     train_stitching_block,
 )
 from repro_torch.core.zoo import BlockZoo  # noqa: E402
+from repro_torch.data.pipeline import DataConfig, TokenPipeline  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels.batched_lora import kernel as lora_kernel  # noqa: E402
 from repro_torch.kernels.batched_lora.ops import (  # noqa: E402
@@ -216,6 +243,17 @@ from repro_torch.serving.engine import (  # noqa: E402
     adaptive_serving_similarity,
 )
 from repro_torch.serving.executor import _bucket  # noqa: E402
+from repro_torch.training.optimizer import (  # noqa: E402
+    AdamWConfig,
+    adamw_init,
+    adamw_update,
+)
+from repro_torch.training.train_loop import (  # noqa: E402
+    TrainConfig,
+    make_train_step,
+    value_and_grad,
+)
+from repro_torch.tree import tree_flatten_with_paths, tree_map  # noqa: E402
 
 # H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s; dense bf16 tensor-core
 # FLOP/s; fp32 FLOP/s outside the tensor cores
@@ -2980,6 +3018,487 @@ def api_cases(cfg):
     return flash, paged
 
 
+# ---------------------------------------------------------------------------
+# phase 11: training, checkpoints and the handoff to serving
+# ---------------------------------------------------------------------------
+
+# train: TinyLlama-1.1B whole from the port's init (seed 0), B = 8 x 512
+# tokens from the data pipeline (seed 0), the default AdamW, bf16 compute:
+# 12 steps, then 4 at the reference example's microbatches=2 with bf16
+# gradients; an async checkpoint after step 8
+TRAIN_MODEL = "tinyllama-1.1b"
+TRAIN_B, TRAIN_S, TRAIN_SEED = 8, 512, 0
+TRAIN_STEPS, TRAIN_MB_STEPS, TRAIN_SAVE_AT = 12, 4, 8
+TRAIN_PROFILE_STEPS = 2
+# the loss of step 1's batch after the 16 steps, below its value at init
+# by at least this much (PERF.md §6 predicts it): the batches draw
+# new tokens each step, so the fixed batch is what shows learning in 16
+# steps
+TRAIN_FIXED_DROP = 0.5
+# written by the train phases and removed after them (gitignored)
+TRAIN_CKPT = ROOT / ".train_ckpt"
+# train_parity: fp32, TF32 off, one value_and_grad on the card against
+# the host's CPU; TinyLlama's widths cut to 2 layers, then one reduced
+# config of each other family
+PARITY_B, PARITY_S = 1, 64
+PARITY_LOSS_RTOL, PARITY_GRAD_RTOL = 1e-5, 1e-4
+PARITY_CASES = {  # case: (config, reduced, fields replaced)
+    "tinyllama-1.1b-2l": ("tinyllama-1.1b", False, {"num_layers": 2}),
+    "mixtral-8x22b-reduced": ("mixtral-8x22b", True, {}),
+    "mixtral-8x22b-reduced-dispatch": ("mixtral-8x22b", True,
+                                       {"moe_impl": "dispatch"}),
+    "seamless-m4t-medium-reduced": ("seamless-m4t-medium", True, {}),
+    "zamba2-2.7b-reduced": ("zamba2-2.7b", True, {}),
+    "xlstm-125m-reduced": ("xlstm-125m", True, {}),
+}
+# train_handoff: the trained weights served from a fresh zoo, two apps
+HANDOFF_APPS = ("trained-base", "trained-lora")
+HANDOFF_REQUESTS, HANDOFF_SEED = 8, 22
+
+
+def train_step_flops(cfg, B, S):
+    """(model FLOPs of one train step, N): PaLM's count, the recomputed
+    forward of the checkpointed layers not counted -- 6 N a token over
+    the N matmul weights (every layer's and the head's; the embedding is
+    a gather), plus attention's 12 L H hd S a token (the scores and their
+    product with V, forward and backward, over the whole S x S: the plain
+    attention computes the masked half too)."""
+    H, KVH, hd, D = (cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim,
+                     cfg.d_model)
+    layer = D * (H + 2 * KVH) * hd + H * hd * D + 3 * D * cfg.d_ff
+    n = cfg.num_layers * layer + D * cfg.vocab_size
+    tokens = B * S
+    return 6 * n * tokens + 12 * cfg.num_layers * H * hd * S * tokens, n
+
+
+# kernel classes of a train step's profile, first match wins
+KERNEL_CLASSES = (("gemm", ("nvjet", "gemm", "cutlass", "sm90_xmma")),
+                  ("softmax", ("softmax",)),
+                  ("reduce", ("reduce",)),
+                  ("index_scatter_gather", ("index", "scatter", "gather")),
+                  ("copy_cast", ("copy",)))
+
+
+def kernel_classes(by_kernel, n) -> dict:
+    """Device ms a step by kernel class (``KERNEL_CLASSES``; the rest:
+    ``elementwise_other``)."""
+    out = {c: 0.0 for c, _ in KERNEL_CLASSES}
+    out["elementwise_other"] = 0.0
+    for us, _, k in by_kernel:
+        low = k.lower()
+        cls = next((c for c, keys in KERNEL_CLASSES
+                    if any(key in low for key in keys)), "elementwise_other")
+        out[cls] += us / 1e3 / n
+    return out
+
+
+def device_batch(pipe, step):
+    return {k: torch.from_numpy(v).to(DEVICE)
+            for k, v in pipe.batch_at(step).items()}
+
+
+def run_train_steps(step_fn, carry: dict, pipe, steps, after=None):
+    """``step_fn`` over the pipeline's batches of ``steps``, the training
+    state in ``carry`` (``params``, ``opt``) replaced after each step, so
+    no caller keeps an earlier step's state alive.  Returns (losses, step
+    walls: each step's host wall with its loss read back);
+    ``after(step count, carry)`` runs after each step, outside its
+    wall."""
+    losses, walls = [], []
+    for step in steps:
+        batch = device_batch(pipe, step)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        carry["params"], carry["opt"], m = step_fn(carry["params"],
+                                                   carry["opt"], batch)
+        losses.append(float(m["loss"]))
+        walls.append(time.perf_counter() - t0)
+        if after is not None:
+            after(step + 1, carry)
+    return losses, walls
+
+
+def fixed_loss(model, params, batch) -> float:
+    with torch.no_grad():
+        return float(model.train_loss(params, batch))
+
+
+def train_dense_phase(smi):
+    """TinyLlama-1.1B trained whole: 12 steps, then 4 at microbatches=2
+    with bf16 gradients, an async checkpoint after step 8 written while
+    the steps go on; no kernel launches (the train loss's attention is the
+    plain route, counted once a layer a forward); every loss finite, and
+    the loss of step 1's batch after the 16 steps below its loss at init
+    by ``TRAIN_FIXED_DROP``; then two steps under ``torch.profiler``."""
+    resident = settle()
+    cfg = get_config(TRAIN_MODEL)
+    model = build_model(cfg)
+    carry = {"params": model.init(
+        torch.Generator(DEVICE).manual_seed(TRAIN_SEED))}
+    carry["opt"] = adamw_init(carry["params"])
+    pipe = TokenPipeline(DataConfig(cfg.vocab_size, TRAIN_B, TRAIN_S,
+                                    seed=TRAIN_SEED))
+    batch0 = device_batch(pipe, 0)
+    fixed_before = fixed_loss(model, carry["params"], batch0)
+    one = make_train_step(model, TrainConfig())
+    two = make_train_step(model, TrainConfig(microbatches=2,
+                                             grad_compress="bf16"))
+    shutil.rmtree(TRAIN_CKPT, ignore_errors=True)
+    ckpt = Checkpointer(str(TRAIN_CKPT))
+    save = {}
+
+    def save_at(step, state):
+        if step == TRAIN_SAVE_AT:
+            t0 = time.perf_counter()
+            ckpt.save(step, dict(state))
+            save["save_call_s"] = time.perf_counter() - t0
+
+    settle()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    reset_routes()
+    losses, walls = run_train_steps(one, carry, pipe, range(TRAIN_STEPS),
+                                    save_at)
+    peak_12 = torch.cuda.max_memory_allocated()
+    # the update returns new tensors: step 12's are kept as they are
+    params_12 = carry["params"]
+    torch.cuda.reset_peak_memory_stats()
+    mb_losses, mb_walls = run_train_steps(
+        two, carry, pipe, range(TRAIN_STEPS, TRAIN_STEPS + TRAIN_MB_STEPS))
+    params, opt = carry["params"], carry["opt"]
+    launches = read_launches()
+    routes = all_routes()
+    peak_mb = torch.cuda.max_memory_allocated()
+    n_fwd = TRAIN_STEPS + 2 * TRAIN_MB_STEPS  # forwards of the loss
+    want_routes = {k: 0 for k in routes}
+    want_routes["prefill_plain"] = cfg.num_layers * n_fwd
+    if any(launches.values()) or routes != want_routes:
+        raise RuntimeError(f"train_dense: launches {launches}, routes "
+                           f"{routes}; want none and {want_routes}")
+    all_losses = losses + mb_losses
+    if not np.isfinite(all_losses).all():
+        raise RuntimeError(f"train_dense: losses {all_losses}")
+    fixed_after = fixed_loss(model, params, batch0)
+    if not fixed_after <= fixed_before - TRAIN_FIXED_DROP:
+        raise RuntimeError(f"train_dense: step 1's batch at {fixed_after} "
+                           f"after {n_fwd} forwards, {fixed_before} at init "
+                           f"(want a drop of {TRAIN_FIXED_DROP})")
+    by_kernel, n = profiled(lambda: run_train_steps(
+        one, dict(carry), pipe,
+        range(TRAIN_STEPS + TRAIN_MB_STEPS,
+              TRAIN_STEPS + TRAIN_MB_STEPS + TRAIN_PROFILE_STEPS))[0])
+    device_s = sum(us for us, _, _ in by_kernel) / 1e6 / n
+    # the step's two halves apart: the peak of the loss and its gradient,
+    # then of the functional update (old and new params and moments)
+    settle()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    _, grads = value_and_grad(model, params, batch0)
+    peak_grad = torch.cuda.max_memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    adamw_update(grads, opt, params, AdamWConfig())
+    peak_update = torch.cuda.max_memory_allocated()
+    del grads
+    p50 = float(np.percentile(walls, 50))
+    flops, n_params = train_step_flops(cfg, TRAIN_B, TRAIN_S)
+    tokens = TRAIN_B * TRAIN_S
+    row = {"phase": "train_dense", "model": cfg.name,
+           "layers": cfg.num_layers, "d_model": cfg.d_model,
+           "heads": [cfg.num_heads, cfg.num_kv_heads,
+                     cfg.resolved_head_dim], "d_ff": cfg.d_ff,
+           "vocab": cfg.vocab_size, "batch": TRAIN_B, "seq_len": TRAIN_S,
+           "compute_dtype": str(model.compute_dtype),
+           "opt": dataclasses.asdict(AdamWConfig()),
+           "steps": TRAIN_STEPS, "microbatch_steps": TRAIN_MB_STEPS,
+           "losses": losses, "microbatch_losses": mb_losses,
+           "first_loss": all_losses[0],
+           "last_four_mean_loss": float(np.mean(all_losses[-4:])),
+           "fixed_batch_loss": {"at_init": fixed_before,
+                                "after_16_steps": fixed_after,
+                                "drop_held_at_least": TRAIN_FIXED_DROP},
+           "step_wall_p50_s": p50,
+           "step_wall_p95_s": float(np.percentile(walls, 95)),
+           "microbatch_step_wall_p50_s": float(np.percentile(mb_walls, 50)),
+           "tokens_per_s": tokens / p50,
+           "model_flops_per_step": flops, "matmul_params": n_params,
+           "flops_count": "6 N tokens + 12 L H hd S tokens (PaLM); the "
+                          "checkpointed layers' recompute not counted",
+           "model_flops_share_of_bf16_peak":
+           flops / p50 / PEAK_FLOPS[torch.bfloat16],
+           "profile": {"steps": n, "device_ms_per_step": device_s * 1e3,
+                       "device_busy_share": device_s / p50,
+                       "kernel_launches_per_step":
+                       sum(c for _, c, _ in by_kernel) / n,
+                       "ms_per_step_by_class": kernel_classes(by_kernel, n),
+                       "top": [{"kernel": k[:120], "device_ms_per_step":
+                                us / 1e3 / n, "calls_per_step": c / n}
+                               for us, c, k in by_kernel[:8]]},
+           "launches": launches, "routes": {k: v for k, v in routes.items()
+                                            if v},
+           "checkpoint_save_call_s": save["save_call_s"],
+           "max_memory_allocated_bytes": max(peak_12, peak_mb),
+           "peak_bytes": {"steps_1_12": peak_12,
+                          "microbatch_steps_with_step_12_kept": peak_mb,
+                          "held_before_one_step": held,
+                          "value_and_grad": peak_grad,
+                          "adamw_update": peak_update},
+           "resident_bytes_at_start": resident, "card": smi}
+    emit(row)
+    state = {"cfg": cfg, "model": model, "pipe": pipe, "ckpt": ckpt,
+             "one": one, "params_12": params_12,
+             "losses_9_12": losses[TRAIN_SAVE_AT:], "params": params}
+    return launches, row, state
+
+
+def train_resume_phase(state, smi):
+    """The step-8 checkpoint (saved asynchronously during train_dense)
+    waited for, restored into fresh tensors on the card, and steps 9-12
+    trained again: the losses and the final parameters bitwise the
+    uninterrupted run's, with no deterministic mode set (the step's
+    reductions on the card run in a fixed order; the embedding's backward,
+    an accumulating ``index_put_``, sorts the token ids).  Then the
+    SIGTERM hook: a blocking checkpoint of the resumed run's step 12
+    appears when the process signals itself."""
+    model, ckpt, pipe = state["model"], state["ckpt"], state["pipe"]
+    t0 = time.perf_counter()
+    ckpt.wait()
+    wait_s = time.perf_counter() - t0
+    if ckpt.latest_step() != TRAIN_SAVE_AT:
+        raise RuntimeError(f"train_resume: latest step {ckpt.latest_step()}")
+    meta = model.param_shapes()
+    t0 = time.perf_counter()
+    restored = ckpt.restore({"params": meta, "opt": adamw_init(meta)},
+                            device=DEVICE)
+    restore_s = time.perf_counter() - t0
+    if int(restored["opt"]["step"]) != TRAIN_SAVE_AT:
+        raise RuntimeError(f"train_resume: restored step "
+                           f"{int(restored['opt']['step'])}")
+    losses, walls = run_train_steps(state["one"], restored, pipe,
+                                    range(TRAIN_SAVE_AT, TRAIN_STEPS))
+    params, opt = restored["params"], restored["opt"]
+    want = state["params_12"]
+    diffs = [float((a - b).abs().max()) for a, b in
+             zip(tree_leaves(params), tree_leaves(want))]
+    if losses != state["losses_9_12"] or any(diffs):
+        raise RuntimeError(f"train_resume: losses {losses} against "
+                           f"{state['losses_9_12']}, params off by "
+                           f"{max(diffs)}")
+    old = signal.getsignal(signal.SIGTERM)
+    tree = {"params": params, "opt": opt}
+    t0 = time.perf_counter()
+    try:
+        install_preemption_hook(ckpt, lambda: (TRAIN_STEPS, tree))
+        os.kill(os.getpid(), signal.SIGTERM)
+    finally:
+        signal.signal(signal.SIGTERM, old)
+    sigterm_s = time.perf_counter() - t0
+    step_dir = TRAIN_CKPT / f"step_{TRAIN_STEPS:08d}"
+    manifest = json.loads((step_dir / "manifest.json").read_text())
+    leaves, paths = tree_flatten_with_paths(tree)
+    head = paths.index("(DictKey(key='params'), DictKey(key='lm_head'))")
+    on_disk = np.load(step_dir / manifest["leaves"][head]["file"])
+    if ckpt.latest_step() != TRAIN_STEPS or manifest["step"] != TRAIN_STEPS \
+            or len(manifest["leaves"]) != len(leaves) \
+            or not np.array_equal(on_disk, leaves[head].cpu().numpy()):
+        raise RuntimeError(f"train_resume: no checkpoint of step "
+                           f"{TRAIN_STEPS} after SIGTERM")
+    nbytes = sum(t.numel() * t.element_size() for t in leaves)
+    shutil.rmtree(TRAIN_CKPT)
+    row = {"phase": "train_resume", "saved_at_step": TRAIN_SAVE_AT,
+           "checkpoint_bytes": nbytes, "leaves": len(leaves),
+           "wait_s": wait_s, "restore_s": restore_s,
+           "resumed_losses": losses, "losses_bitwise": True,
+           "params_bitwise": True,
+           "step_wall_p50_s": float(np.percentile(walls, 50)),
+           "sigterm_checkpoint": {"step": TRAIN_STEPS, "s": sigterm_s},
+           "card": smi}
+    emit(row)
+    return row
+
+
+def parity_case(case):
+    name, reduced, fields = PARITY_CASES[case]
+    cfg = (get_reduced_config if reduced else get_config)(name)
+    cfg = dataclasses.replace(cfg, **fields)
+    model = build_model(cfg, torch.float32)
+    params = model.init(torch.Generator().manual_seed(0), "cpu")
+    batch = {k: torch.from_numpy(v) for k, v in TokenPipeline(DataConfig(
+        cfg.vocab_size, PARITY_B, PARITY_S)).batch_at(0).items()}
+    if cfg.family == "encdec":
+        batch["frames"] = 0.1 * torch.randn(
+            PARITY_B, 24, cfg.d_model,
+            generator=torch.Generator().manual_seed(1))
+    return cfg, model, params, batch
+
+
+def train_parity_phase(smi):
+    """One fp32 ``value_and_grad`` (TF32 off) on the card against the same
+    on the host's CPU, for TinyLlama's widths cut to 2 layers (B = 1,
+    S = 64) and one reduced config of each other family: the loss within
+    1e-5 (relative), every leaf's gradient within 1e-4 in relative L2
+    norm, no kernel launched."""
+    rows = []
+    for case in PARITY_CASES:
+        cfg, model, params, batch = parity_case(case)
+        want_loss, want = value_and_grad(model, params, batch)
+        reset_launches()
+        reset_routes()
+        M.margin_log = [] if cfg.family == "moe" else None
+        try:
+            loss, grads = value_and_grad(model, to_device(params, DEVICE),
+                                         to_device(batch, DEVICE))
+            gaps = [float(x["margin"].detach().min())
+                    for x in M.margin_log or []]
+        finally:
+            M.margin_log = None
+        launches = read_launches()
+        rel = abs(float(loss) - float(want_loss)) / abs(float(want_loss))
+        errs = {p: float((g.cpu() - w).norm()) / max(float(w.norm()), 1e-30)
+                for g, w, p in zip(tree_leaves(grads), tree_leaves(want),
+                                   tree_flatten_with_paths(want)[1])}
+        worst = max(errs, key=errs.get)
+        if any(launches.values()) or T.PREFILL_ROUTES["flash"] \
+                or not rel <= PARITY_LOSS_RTOL \
+                or not errs[worst] <= PARITY_GRAD_RTOL:
+            raise RuntimeError(f"train_parity {case}: launches {launches}, "
+                               f"loss {float(loss)} vs {float(want_loss)}, "
+                               f"{worst} at {errs[worst]}")
+        rows.append({"case": case, "family": cfg.family,
+                     "d_model": cfg.d_model, "layers": cfg.num_layers,
+                     "loss_card": float(loss), "loss_cpu": float(want_loss),
+                     "loss_rel_err": rel, "leaves": len(errs),
+                     "worst_grad_rel_l2": errs[worst], "worst_leaf": worst,
+                     **({"min_router_gap": min(gaps)} if gaps else {})})
+    row = {"phase": "train_parity", "batch": PARITY_B, "seq_len": PARITY_S,
+           "dtype": "float32", "tf32": False, "cases": rows,
+           "loss_rtol": PARITY_LOSS_RTOL, "grad_rel_l2_tol": PARITY_GRAD_RTOL,
+           "card": smi}
+    emit(row)
+    return row
+
+
+def handoff_traffic(cfg):
+    rng = np.random.RandomState(HANDOFF_SEED)
+    return [ServeRequest(app=HANDOFF_APPS[i % 2], gen_len=GEN_LEN,
+                         prompt_tokens=rng.randint(
+                             0, cfg.vocab_size, size=int(rng.randint(16, 129))
+                         ).astype(np.int32))
+            for i in range(HANDOFF_REQUESTS)]
+
+
+def train_handoff_phase(state, smi):
+    """The trained TinyLlama registered in a fresh ``BlockZoo`` as
+    foundation ``trained-base``, with ``trained-lora`` (its LoRA B
+    matrices nonzero); ``profile_block`` on its first layer block; 8
+    requests served through ``BlockEngine.submit/drain``, each kernel's
+    launches equal to its executor counter; the base app's greedy tokens
+    equal to the Model API's ``prefill`` + ``decode_step`` on a fresh copy
+    of the trained weights wherever the Model API's top-2 margin is
+    clear (serving reads the trained weights, through no stale cast)."""
+    cfg, model, params = state["cfg"], state["model"], state["params"]
+    resident = settle()
+    zoo = BlockZoo()
+    zoo.register_foundation(HANDOFF_APPS[0], cfg, params)
+    lora = peft.create_lora(cfg, torch.Generator(DEVICE).manual_seed(2))
+    g = torch.Generator(DEVICE).manual_seed(100)
+    for layer in lora:
+        layer["b_q"].normal_(0.0, 0.05, generator=g)
+        layer["b_v"].normal_(0.0, 0.05, generator=g)
+    zoo.register_peft(HANDOFF_APPS[1], cfg, HANDOFF_APPS[0], "lora", lora)
+    base = [zoo.blocks[s.block_id] for s in zoo.chains[HANDOFF_APPS[0]].steps]
+    if base[0].params["embed"] is not params["embed"] or \
+            base[1].params["wq"].data_ptr() != \
+            params["layers"]["wq"][0].data_ptr():
+        raise RuntimeError("train_handoff: the zoo does not hold the "
+                           "trained weights")
+    prof = zoo.profile_block(base[1].id, batch_sizes=(1, 8, 32), seq_len=64)
+    reqs = handoff_traffic(cfg)
+    serve(engine(zoo), [ServeRequest(app=a, gen_len=4, prompt_tokens=np.arange(
+        20, dtype=np.int32)) for a in HANDOFF_APPS])  # warm-up
+    eng = engine(zoo)
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    t0 = time.perf_counter()
+    results = serve(eng, reqs)
+    wall = time.perf_counter() - t0
+    launches = read_launches()
+    stats = dict(eng.stats)
+    for r in results:
+        if len(r.tokens) != GEN_LEN or r.tokens.min() < 0 \
+                or r.tokens.max() >= cfg.vocab_size:
+            raise RuntimeError(f"train_handoff: rid {r.rid}: bad tokens")
+    check_launches(launches, stats, "train_handoff")
+    check_prefill_calls(stats, reqs, cfg.num_layers, "train_handoff")
+    peak = torch.cuda.max_memory_allocated()
+    # the Model API on a fresh copy of the trained weights, app base's
+    # prompts right-padded to the longest
+    mine = [(r, q) for r, q in zip(results, reqs) if q.app == HANDOFF_APPS[0]]
+    lens_np = np.array([len(q.prompt_tokens) for _, q in mine], np.int32)
+    tok_np = np.zeros((len(mine), int(lens_np.max())), np.int32)
+    for b, (_, q) in enumerate(mine):
+        tok_np[b, :lens_np[b]] = q.prompt_tokens
+    fresh = tree_map(torch.clone, params)
+    api_tok, api_logits, _, _ = api_run(
+        model, fresh, torch.from_numpy(tok_np).to(DEVICE),
+        torch.from_numpy(lens_np).to(DEVICE), MAX_LEN, GEN_LEN - 1, "auto")
+    del fresh
+    api_tok = api_tok.cpu().numpy()
+    margins = top2_margin(api_logits).cpu().numpy()  # (steps, B)
+    equal, flips = 0, []
+    for b, (r, _) in enumerate(mine):
+        diff = np.nonzero(r.tokens != api_tok[b])[0]
+        j = int(diff[0]) if len(diff) else GEN_LEN
+        equal += j
+        if len(diff):
+            flips.append({"request": b, "at": j,
+                          "api_margin": float(margins[j, b])})
+    if any(f["api_margin"] >= API_MARGIN for f in flips):
+        raise RuntimeError(f"train_handoff: engine and Model API flip at a "
+                           f"clear margin: {flips}")
+    tokens = sum(len(r.tokens) for r in results)
+    row = {"phase": "train_handoff", "model": cfg.name,
+           "apps": list(HANDOFF_APPS), "requests": len(results),
+           "prompt_lens": [len(q.prompt_tokens) for q in reqs],
+           "gen_len": GEN_LEN, "tokens": tokens, "wall_s": wall,
+           "tok_per_s": tokens / wall, "launches": launches,
+           "engine_calls": engine_calls(stats),
+           "vs_model_api": {"tokens_equal": equal,
+                            "tokens_compared": len(mine) * GEN_LEN,
+                            "flips": flips, "allowed_below": API_MARGIN},
+           "profile_block": {"block": base[1].id, "seq_len": 64,
+                             "us_per_token": {
+                                 bs: t * 1e6 for bs, t in
+                                 prof.compute_time_per_token.items()}},
+           "zoo_blocks": len(zoo.blocks),
+           "max_memory_allocated_bytes": peak,
+           "resident_bytes_at_start": resident, "card": smi}
+    emit(row)
+    del eng, zoo
+    return launches, row
+
+
+def train_phases(smi):
+    """train_dense, train_resume, train_parity, train_handoff.  Returns
+    ({path: launches}, {phase: row}, {phase: seconds})."""
+    took, rows = {}, {}
+    t0 = time.perf_counter()
+    dense_launches, rows["train_dense"], state = train_dense_phase(smi)
+    took["train_dense"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    rows["train_resume"] = train_resume_phase(state, smi)
+    took["train_resume"] = time.perf_counter() - t0
+    for k in ("params_12", "one", "ckpt"):
+        del state[k]
+    t0 = time.perf_counter()
+    rows["train_parity"] = train_parity_phase(smi)
+    took["train_parity"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    handoff_launches, rows["train_handoff"] = train_handoff_phase(state, smi)
+    took["train_handoff"] = time.perf_counter() - t0
+    return ({"train_dense": dense_launches,
+             "train_handoff": handoff_launches}, rows, took)
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device; this script runs only "
@@ -3118,6 +3637,8 @@ def main():
     t0 = time.perf_counter()
     stable_launches, stable = stablelm_phase(smi)
     phase_s["stablelm"] = time.perf_counter() - t0
+    train_launches, train, train_s = train_phases(smi)
+    phase_s.update(train_s)
 
     # each main-path run: counts set to 0 just before, read just after
     by_path = {"engine": eng_launches, **{
@@ -3126,7 +3647,7 @@ def main():
         "launch": launch_launches, "model_api": api_launches,
         "model_api_int8": int8_launches, "cross_size": cross_launches,
         **moe_launches, "encdec": enc_launches, **hyb_launches,
-        "ssm": ssm_launches, "stablelm": stable_launches}
+        "ssm": ssm_launches, "stablelm": stable_launches, **train_launches}
     # the shape each kernel's ms stands for: paged attention's decode
     # batch; flash's costliest prefill call (the long path's largest
     # group); LoRA's decode q projection at the engine's app-lora batch,
@@ -3186,7 +3707,10 @@ def main():
           "hybrid_decode_tok_per_s": hyb["decode_tok_per_s"],
           "hybrid_ring_decode_tok_per_s": hyb["ring"]["decode_tok_per_s"],
           "ssm_decode_tok_per_s": ssm["decode_tok_per_s"],
-          "stablelm_decode_tok_per_s": stable["decode_tok_per_s"]})
+          "stablelm_decode_tok_per_s": stable["decode_tok_per_s"],
+          "train_step_wall_p50_s": train["train_dense"]["step_wall_p50_s"],
+          "train_tokens_per_s": train["train_dense"]["tokens_per_s"],
+          "train_handoff_tok_per_s": train["train_handoff"]["tok_per_s"]})
     emit({"kernels": line})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

@@ -19,7 +19,8 @@ import torch
 def leaf_to_torch(x: np.ndarray, *, device) -> torch.Tensor:
     if not isinstance(x, np.ndarray):
         raise TypeError(f"bridge takes numpy arrays, got {type(x).__name__}")
-    x = np.ascontiguousarray(x)
+    if not x.flags.c_contiguous:  # ascontiguousarray would make 0-d 1-d
+        x = np.ascontiguousarray(x)
     if not x.flags.writeable:  # e.g. from jax.device_get: torch wants its own
         x = x.copy()
     if x.dtype.name == "bfloat16":

@@ -38,35 +38,16 @@ from repro_torch.models.transformer import (
     _out_proj,
     prefill_attention,
 )
+from repro_torch.tree import (  # noqa: F401 (re-exported)
+    _flatten_with_path,
+    _path_str,
+    tree_leaves,
+)
 
 # ---------------------------------------------------------------------------
-# parameter trees (nested dicts/lists of tensors or numpy arrays)
+# parameter trees (nested dicts/lists of tensors or numpy arrays), walked
+# in JAX's flatten order (``repro_torch.tree``)
 # ---------------------------------------------------------------------------
-
-
-def _flatten_with_path(tree, prefix=()):
-    """(path, leaf) pairs with each path entry rendered as JAX renders its
-    key-path entries (``DictKey(key='wq')``, ``SequenceKey(idx=0)``)."""
-    if isinstance(tree, dict):
-        for k in sorted(tree):
-            yield from _flatten_with_path(tree[k],
-                                          prefix + (f"DictKey(key={k!r})",))
-    elif isinstance(tree, (list, tuple)):
-        for i, x in enumerate(tree):
-            yield from _flatten_with_path(x, prefix + (f"SequenceKey(idx={i})",))
-    else:
-        yield prefix, tree
-
-
-def _path_str(path: Tuple[str, ...]) -> str:
-    """``str()`` of the key-path tuple, exactly as Python prints it."""
-    if len(path) == 1:
-        return f"({path[0]},)"
-    return "(" + ", ".join(path) + ")"
-
-
-def tree_leaves(tree) -> list:
-    return [leaf for _, leaf in _flatten_with_path(tree)]
 
 
 def _leaf_bytes(leaf) -> np.ndarray:

@@ -1,6 +1,6 @@
 """Encoder-decoder transformer backbone (seamless-m4t-medium) in PyTorch —
-the port of ``repro.models.encdec``'s init, encoder, prefill and decode
-(training waits: ROADMAP.md §1).
+the port of ``repro.models.encdec``: init, the encoder, the train loss,
+prefill and decode.
 
 The speech frontend is a stub, as in the reference: ``frames`` arrive as
 precomputed (B, S_src, d_model) embeddings.  The encoder is bidirectional;
@@ -24,7 +24,9 @@ plain code), counted in ``transformer.PREFILL_ROUTES``/``DECODE_ROUTES``:
   kernel does not take: ROADMAP.md §2).
 
 As in the reference, prefill's cross-attention attends over all S_src
-frames, and decode's masks at ``src_len``.
+frames, and decode's masks at ``src_len``.  The train loss runs every
+attention on the reference's plain code, each encoder and decoder layer
+checkpointed.
 """
 from __future__ import annotations
 
@@ -161,10 +163,53 @@ def _dec_layer_full(x, p, cfg: ModelConfig, positions, enc_out, *,
     h = L.rms_norm(x, p["ln_x"], cfg.norm_eps)
     xq = _proj(h, p["xwq"])
     xk, xv = _proj(enc_out, p["xwk"]), _proj(enc_out, p["xwv"])
-    T.PREFILL_ROUTES["cross_plain"] += 1
+    if attn_impl != T.TRAIN:  # the train loss counts its layers' calls
+        T.PREFILL_ROUTES["cross_plain"] += 1
     o = bidir_attention(xq, xk, xv, cfg.attn_chunk)
     x = _mlp(x + T._out_proj(o, p["xwo"]), p, cfg)
     return (x, (k, v, xk, xv)) if return_kv else x
+
+
+def _train_enc_layer(x, p, cfg: ModelConfig, positions) -> torch.Tensor:
+    p = T.cast_at_use(p, x.dtype)
+    x = T._attn_layer_full(x, p, cfg, positions, attn_impl=T.TRAIN,
+                           causal=False)
+    return _mlp(x, p, cfg)
+
+
+def _train_dec_layer(x, p, cfg: ModelConfig, positions, enc_out):
+    p = T.cast_at_use(p, x.dtype, DEC_FP32)
+    return _dec_layer_full(x, p, cfg, positions, enc_out, attn_impl=T.TRAIN)
+
+
+def encdec_train_loss(params: dict, cfg: ModelConfig, batch: dict, *,
+                      vocab_chunk: int = 0, attn_impl: str = "auto",
+                      compute_dtype: torch.dtype = L.COMPUTE_DTYPE
+                      ) -> torch.Tensor:
+    """The next-token loss of the decoder over ``tokens``/``labels`` (B, S)
+    given ``frames`` (B, S_src, D): the encoder, then the decoder's layers
+    with cross-attention over its output, every layer checkpointed and
+    casting its weights at use, every attention the reference's plain code
+    (counted once a forward: ``plain`` per encoder and decoder layer,
+    ``cross_plain`` per decoder layer)."""
+    T.train_attention_impl(attn_impl)
+    dev = params["embed"].device
+    h = batch["frames"].to(device=dev, dtype=compute_dtype)
+    positions = T._positions(cfg, {}, *h.shape[:2], dev)
+    for p in T.unstack(params["encoder"]):
+        T.PREFILL_ROUTES["plain"] += 1
+        h = T.checkpointed(_train_enc_layer, h, p, cfg, positions)
+    enc_out = L.rms_norm(h, params["enc_final_ln"], cfg.norm_eps)
+    tokens = batch["tokens"]
+    h = params["embed"][tokens.long()].to(compute_dtype)
+    positions = T._positions(cfg, batch, *tokens.shape, dev)
+    for p in T.unstack(params["decoder"]):
+        T.PREFILL_ROUTES["plain"] += 1
+        T.PREFILL_ROUTES["cross_plain"] += 1
+        h = T.checkpointed(_train_dec_layer, h, p, cfg, positions, enc_out)
+    h = L.rms_norm(h, params["final_ln"], cfg.norm_eps)
+    return T.cross_entropy(h, params["lm_head"], batch["labels"],
+                           vocab_chunk)
 
 
 def encdec_prefill(params: dict, cfg: ModelConfig, batch: dict, *,

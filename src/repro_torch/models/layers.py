@@ -65,24 +65,33 @@ def dense_fill(gen: torch.Generator, out: torch.Tensor,
     return out.mul_(1.0 / math.sqrt(max(fan_in, 1)))
 
 
-# source tensor -> {dtype: its cast}: one cast per tensor, whoever reads it;
-# keyed by identity (a tensor's == is elementwise) and weakly, so an entry
-# lives as long as its source tensor
+# source tensor -> {dtype: (its version when cast, its cast)}: one cast per
+# tensor, whoever reads it; keyed by identity (a tensor's == is
+# elementwise) and weakly, so an entry lives as long as its source tensor
 _CASTS = WeakIdKeyDictionary()
 
 
 def cast_once(t: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
     """``t.to(dtype)``, made once per (tensor, dtype) and shared: bitwise
     what the reference's per-use ``astype`` gives, read at half the bytes
-    in bf16 on every later use."""
+    in bf16 on every later use.
+
+    The cache is skipped while autograd records ``t`` (a training step): a
+    kept cast would hold that step's graph and go stale at the optimizer's
+    update, so training casts at each use, as the reference does.  A cast
+    made before an in-place write to ``t`` is made again (the tensor's
+    version counter moved)."""
     if t.dtype == dtype:  # no copy; an entry holding t would keep t alive
         return t
+    if t.requires_grad and torch.is_grad_enabled():
+        return t.to(dtype)
     casts = _CASTS.get(t)
     if casts is None:
         casts = _CASTS[t] = {}
-    out = casts.get(dtype)
-    if out is None:
-        out = casts[dtype] = t.to(dtype)
+    version, out = casts.get(dtype, (None, None))
+    if out is None or version != t._version:
+        out = t.to(dtype)
+        casts[dtype] = (t._version, out)
     return out
 
 

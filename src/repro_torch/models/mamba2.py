@@ -1,6 +1,5 @@
 """Mamba2 (SSD) layers and the Zamba2 hybrid in PyTorch — the port of
-``repro.models.mamba2``'s init, prefill and decode entry points (training
-waits: ROADMAP.md §1).
+``repro.models.mamba2``: init, the train loss, prefill and decode.
 
 SSD runs in its chunked form: quadratic products within a chunk and a
 recurrence across chunks, a Python loop over the chunks where the
@@ -20,6 +19,10 @@ sliding window (past it the kernel routes raise), and in decode one
 ``DecodeAttention`` plan a step over ``cache["attn"]``, the fused paged
 step while every row is inside the ring, else the ring's insert and the
 attend-only launch.
+
+The train loss checkpoints each mamba layer, as the reference does (the
+shared block is not), and runs the shared block's attention on the
+reference's plain code.
 
 Prefill runs the recurrences over the whole padded sequence, as the
 reference does: a ragged row's conv state (the last W - 1 positions) and
@@ -280,16 +283,37 @@ def _mamba_params(params: dict, i: int, j: int, dtype: torch.dtype) -> dict:
             for k, v in params["mamba"].items()}
 
 
+def _train_mamba(x, p, cfg: ModelConfig) -> torch.Tensor:
+    """One mamba layer of the train loss: its weights cast at use, its
+    states dropped."""
+    p = {k: v.to(x.dtype) if k in MAMBA_CAST else v for k, v in p.items()}
+    return mamba_forward(x, p, cfg)[0]
+
+
 def _zamba_trunk(params: dict, cfg: ModelConfig, h, positions, *,
                  attn_impl: str = "auto",
-                 compute_dtype: torch.dtype = L.COMPUTE_DTYPE):
+                 compute_dtype: torch.dtype = L.COMPUTE_DTYPE,
+                 collect: bool = True):
     """The full-sequence trunk.  Returns (h, the shared block's K/V
     ``{"k", "v"}`` stacked (n_super, B, S, KVH, hd), the mamba states
     (conv (n_super, every, B, W - 1, C), ssm (n_super, every, B, H, P,
-    N)))."""
+    N))).  ``collect`` False (the train loss): no K/V or state is kept
+    (nothing is written in place), each mamba layer is checkpointed, and
+    the shared block attends on the reference's plain route, counted once
+    an application; returns (h, None, None)."""
     h0 = h
     shared = _shared_params(params, compute_dtype)
     n_super, every = params["mamba"]["w_in"].shape[:2]
+    if not collect:
+        layers = T.unstack({k: v.flatten(0, 1)
+                            for k, v in params["mamba"].items()})
+        for i in range(n_super):
+            T.PREFILL_ROUTES["plain"] += 1
+            h, _ = shared_attn_block(h, h0, shared, cfg, positions,
+                                     attn_impl=T.TRAIN)
+            for p in layers[i * every:(i + 1) * every]:
+                h = T.checkpointed(_train_mamba, h, p, cfg)
+        return h, None, None
     kv = conv = ssm = None
     for i in range(n_super):
         h, (k, v) = shared_attn_block(h, h0, shared, cfg, positions,
@@ -304,6 +328,25 @@ def _zamba_trunk(params: dict, cfg: ModelConfig, h, positions, *,
             conv[i, j] = cst
             ssm[i, j] = sst
     return h, kv, (conv, ssm)
+
+
+def zamba_train_loss(params: dict, cfg: ModelConfig, batch: dict, *,
+                     vocab_chunk: int = 0, attn_impl: str = "auto",
+                     compute_dtype: torch.dtype = L.COMPUTE_DTYPE
+                     ) -> torch.Tensor:
+    """The next-token loss of ``tokens`` against ``labels`` (B, S), -1
+    masked: the trunk without its states (``_zamba_trunk(collect=False)``),
+    then the final norm and ``transformer.cross_entropy``."""
+    T.train_attention_impl(attn_impl)
+    tokens = batch["tokens"]
+    dev = params["embed"].device
+    h = params["embed"][tokens.long()].to(compute_dtype)
+    positions = T._positions(cfg, batch, *tokens.shape, dev)
+    h, _, _ = _zamba_trunk(params, cfg, h, positions,
+                           compute_dtype=compute_dtype, collect=False)
+    h = L.rms_norm(h, params["final_ln"], cfg.norm_eps)
+    return T.cross_entropy(h, params["lm_head"], batch["labels"],
+                           vocab_chunk)
 
 
 def zamba_prefill(params: dict, cfg: ModelConfig, batch: dict, *,

@@ -5,18 +5,20 @@ encoder-decoder (seamless-m4t).
 
 ``build_model(cfg)`` returns a ``Model`` with:
   - init(gen, device=None) -> params (fp32, drawn from a torch generator)
+  - train_loss(params, batch, vocab_chunk=0) -> 0-d fp32 loss, which
+    autograd differentiates
   - prefill(params, batch, max_len=None) -> (last_logits, cache, kv_len)
   - decode_step(params, cache, batch) -> (logits, cache), the cache
     updated in place
   - param_shapes() / batch_specs(shape) / cache_specs(shape): tensors on
     the ``meta`` device (shapes and dtypes; nothing is allocated).
 
-Both entry points take ``attn_impl`` (``models.transformer``): on a CUDA
+The entry points take ``attn_impl`` (``models.transformer``): on a CUDA
 tensor, prefill runs the flash-attention kernel and decode the
 paged-attention kernel (the SSM family has no attention and runs no
-kernel).  Training raises ``NotImplementedError`` naming the
-``ROADMAP.md`` item that ports it; the reference's sharding argument is
-not taken (the mesh code comes last).
+kernel).  The train loss runs the reference's plain attention on every
+device and refuses a kernel route (no kernel has a backward).  The
+reference's sharding argument is not taken (the mesh code comes last).
 
 ``params_from_numpy`` and ``cache_from_numpy`` carry the reference's
 trees (as ``jax.device_get`` returns them) across, checked against this
@@ -32,11 +34,7 @@ import torch
 from repro_torch.bridge import to_torch
 from repro_torch.configs.base import ModelConfig, ShapeConfig
 from repro_torch.models import layers as L
-
-TRAINING_ITEM = ("ROADMAP.md §1 item 1 (training: dense_train_loss, "
-                 "moe_train_loss, zamba_train_loss, xlstm_train_loss, "
-                 "encdec_train_loss, cross_entropy, training/, checkpoint/)")
-
+from repro_torch.tree import _flatten_with_path, _path_str, tree_map
 
 class Model:
     def __init__(self, cfg: ModelConfig, fns: Dict[str, Callable],
@@ -48,8 +46,12 @@ class Model:
     def init(self, gen: torch.Generator, device=None) -> dict:
         return self._fns["init"](self.cfg, gen, device)
 
-    def train_loss(self, params, batch, vocab_chunk: int = 0):
-        raise NotImplementedError(f"training is not ported yet: {TRAINING_ITEM}")
+    def train_loss(self, params, batch, vocab_chunk: int = 0, *,
+                   attn_impl: str = "auto"):
+        return self._fns["train_loss"](params, self.cfg, batch,
+                                       vocab_chunk=vocab_chunk,
+                                       attn_impl=attn_impl,
+                                       compute_dtype=self.compute_dtype)
 
     def prefill(self, params, batch, max_len=None, *, attn_impl: str = "auto"):
         return self._fns["prefill"](params, self.cfg, batch, max_len=max_len,
@@ -161,6 +163,7 @@ def build_model(cfg: ModelConfig,
 
         return Model(cfg, {
             "init": T.init_dense,
+            "train_loss": T.dense_train_loss,
             "prefill": T.dense_prefill,
             "decode_step": T.dense_decode_step,
         }, compute_dtype)
@@ -169,6 +172,7 @@ def build_model(cfg: ModelConfig,
 
         return Model(cfg, {
             "init": M.init_moe,
+            "train_loss": M.moe_train_loss,
             "prefill": M.moe_prefill,
             "decode_step": M.moe_decode_step,
         }, compute_dtype)
@@ -177,6 +181,7 @@ def build_model(cfg: ModelConfig,
 
         return Model(cfg, {
             "init": Z.init_zamba,
+            "train_loss": Z.zamba_train_loss,
             "prefill": Z.zamba_prefill,
             "decode_step": Z.zamba_decode_step,
         }, compute_dtype)
@@ -185,6 +190,7 @@ def build_model(cfg: ModelConfig,
 
         return Model(cfg, {
             "init": X.init_xlstm,
+            "train_loss": X.xlstm_train_loss,
             "prefill": X.xlstm_prefill,
             "decode_step": X.xlstm_decode_step,
         }, compute_dtype)
@@ -193,6 +199,7 @@ def build_model(cfg: ModelConfig,
 
         return Model(cfg, {
             "init": E.init_encdec,
+            "train_loss": E.encdec_train_loss,
             "prefill": E.encdec_prefill,
             "decode_step": E.encdec_decode_step,
         }, compute_dtype)
@@ -204,31 +211,11 @@ def build_model(cfg: ModelConfig,
 # ---------------------------------------------------------------------------
 
 
-def _flat(tree, prefix=""):
-    if isinstance(tree, dict):
-        for k in sorted(tree):
-            yield from _flat(tree[k], f"{prefix}/{k}")
-    elif isinstance(tree, (list, tuple)):
-        for i, t in enumerate(tree):
-            yield from _flat(t, f"{prefix}/{i}")
-    else:
-        yield prefix, tree
-
-
-def _copy(tree):
-    """A numpy tree with every array copied (no tensor aliases the
-    caller's arrays)."""
-    if isinstance(tree, dict):
-        return {k: _copy(v) for k, v in tree.items()}
-    if isinstance(tree, (list, tuple)):
-        return type(tree)(_copy(v) for v in tree)
-    return np.array(tree)
-
-
 def _check(what: str, got: dict, want: dict, exact_dims: bool = True) -> None:
-    g = {k: (tuple(v.shape), str(v.dtype)) for k, v in _flat(got)}
-    w = {k: (tuple(v.shape), str(v.dtype).replace("torch.", ""))
-         for k, v in _flat(want)}
+    g = {_path_str(k): (tuple(v.shape), str(v.dtype))
+         for k, v in _flatten_with_path(got)}
+    w = {_path_str(k): (tuple(v.shape), str(v.dtype).replace("torch.", ""))
+         for k, v in _flatten_with_path(want)}
     if sorted(g) != sorted(w):
         raise ValueError(f"{what}: keys {sorted(g)}, want {sorted(w)}")
     for k, (shape, dtype) in g.items():
@@ -236,7 +223,7 @@ def _check(what: str, got: dict, want: dict, exact_dims: bool = True) -> None:
         dims = range(len(wshape)) if exact_dims else (0, 3, 4)
         if len(shape) != len(wshape) or dtype != wdtype \
                 or any(shape[d] != wshape[d] for d in dims):
-            raise ValueError(f"{what}{k}: {shape} {dtype}, want {wshape} "
+            raise ValueError(f"{what} {k}: {shape} {dtype}, want {wshape} "
                              f"{wdtype}")
 
 
@@ -266,4 +253,4 @@ def cache_from_numpy(cfg: ModelConfig, tree, device,
     want = cache_struct(cfg, B, S, compute_dtype)
     _check("cache", tree, want,
            exact_dims=cfg.family in ("hybrid", "ssm"))
-    return to_torch(_copy(tree), device=device)
+    return to_torch(tree_map(np.array, tree), device=device)

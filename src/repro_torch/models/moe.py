@@ -1,6 +1,5 @@
 """Mixture-of-Experts decoder (mixtral-8x22b, dbrx-132b) in PyTorch — the
-port of ``repro.models.moe``'s init, prefill and decode entry points
-(training waits: ROADMAP.md §1).
+port of ``repro.models.moe``: init, the train loss, prefill and decode.
 
 Layers are the dense family's with the SwiGLU MLP replaced by E experts:
 ``router (D, E)``, ``e_gate``/``e_up (E, D, F)``, ``e_down (E, F, D)``,
@@ -15,6 +14,10 @@ Three routes compute the experts, as in the reference:
   weights are read, one product per selected expert over the rows that
   chose it (the same function as the reference's ``(B, k, D, F)`` gather,
   which would be 2.1 GB per weight in bf16 at dbrx's width).
+
+In training, the router's gradient reaches it through the combine weights
+(the softmax over the k selected logits), as in the reference; the top-k
+choice itself is not differentiated.
 
 The expert products are ``torch.matmul``: the reference computes them in
 ``jnp`` outside any Pallas kernel.  Attention, the KV cache and their
@@ -184,8 +187,11 @@ def _moe_mlp(x, p, cfg: ModelConfig) -> torch.Tensor:
         out = moe_dispatch_mlp(h, combine, p, cfg)
         return x + out.to(x.dtype)
     acc = torch.zeros(x.shape, dtype=torch.float32, device=x.device)
-    for e in range(cfg.num_experts):  # the reference's scan, in its order
-        y = _expert(h, p["e_gate"][e], p["e_up"][e], p["e_down"][e])
+    experts = zip(*(p[w].unbind(0) for w in ("e_gate", "e_up", "e_down")))
+    # the reference's scan, in its order (``unbind``: under autograd one
+    # gradient of the stacked experts, not one per expert read)
+    for e, (wg, wu, wd) in enumerate(experts):
+        y = _expert(h, wg, wu, wd)
         acc = acc + combine[..., e, None] * y.float()
     return x + acc.to(x.dtype)
 
@@ -199,6 +205,20 @@ def _moe_layer_fwd(x, p, cfg: ModelConfig, positions,
 # ---------------------------------------------------------------------------
 # entry points
 # ---------------------------------------------------------------------------
+
+
+def moe_train_loss(params: dict, cfg: ModelConfig, batch: dict, *,
+                   vocab_chunk: int = 0, attn_impl: str = "auto",
+                   compute_dtype: torch.dtype = L.COMPUTE_DTYPE
+                   ) -> torch.Tensor:
+    """The next-token loss, as ``transformer.dense_train_loss`` computes
+    it (checkpointed layers, the reference's plain attention), with the
+    experts in place of the MLP on the config's route (the dense expert
+    scan or capacity dispatch)."""
+    return T.decoder_train_loss(params, cfg, batch, _moe_mlp,
+                                vocab_chunk=vocab_chunk, attn_impl=attn_impl,
+                                compute_dtype=compute_dtype,
+                                fp32=FP32_PARAMS)
 
 
 def moe_prefill(params: dict, cfg: ModelConfig, batch: dict, *,

@@ -1,13 +1,14 @@
 """Dense decoder-only transformer (llama/qwen family, with qwen2-vl's
-M-RoPE backbone) in PyTorch — the port of ``repro.models.transformer``'s
-init, prefill and decode entry points (training waits: ROADMAP.md §1).
+M-RoPE backbone) in PyTorch — the port of ``repro.models.transformer``:
+init, the train loss, prefill and decode.
 
 Parameters are dicts of fp32 tensors in the reference's layouts:
 ``wq (D,H,hd)``, ``wk``/``wv (D,KVH,hd)``, ``wo (H,hd,D)``,
 ``w_gate``/``w_up (D,F)``, ``w_down (F,D)``, ``embed (V,D)``,
 ``lm_head (D,V)``, ``bq``/``bk``/``bv`` with ``qkv_bias``; ``init_dense``
-stacks the layers on a leading axis.  Weights are cast to the compute
-dtype once per tensor (``layers.cast_once``), not at every use.
+stacks the layers on a leading axis.  Serving casts weights to the compute
+dtype once per tensor (``layers.cast_once``), not at every use; the train
+loss casts at each use, inside each checkpointed layer.
 
 Attention goes through the port's kernels on a CUDA tensor (``attn_impl``
 ``auto`` or ``cuda``): prefill through the flash-attention kernel, decode
@@ -25,6 +26,10 @@ at most the window, and the reference's decode attends over all of its
 them).  A shape the kernels do not take raises ``NotImplementedError``
 under ``auto``/``cuda``.
 
+The train loss runs the reference's own plain attention on every device
+(``train_attention_impl``): neither the Pallas kernel nor the port's flash
+kernel has a backward.
+
 The MoE family (``models.moe``) and the encoder-decoder's decoder
 (``models.encdec``) reuse these attention pieces and routes as they are.
 """
@@ -34,6 +39,7 @@ import dataclasses
 from typing import Callable, Optional
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.flash_attention import kernel as fa_kernel
@@ -59,8 +65,14 @@ DECODE_ROUTES = {"paged": 0, "paged_ref": 0, "int8": 0, "plain": 0,
 # prefill attention calls by route, likewise: ``flash`` (the kernel),
 # ``flash_ref`` (its plain version), ``plain`` (the reference's plain code);
 # ``cross_plain``: the encoder-decoder's cross-attention (queries and keys
-# of different lengths, which no kernel takes: plain on every route)
+# of different lengths, which no kernel takes: plain on every route).  The
+# train loss counts each layer's attention once a forward, in ``plain``
+# and ``cross_plain``: a checkpointed layer's recompute in backward is not
+# counted again
 PREFILL_ROUTES = {"flash": 0, "flash_ref": 0, "plain": 0, "cross_plain": 0}
+# ``attn_impl`` inside the train loss's layers: the reference's plain
+# attention, not counted here (the loss counts it once a forward)
+TRAIN = "train"
 
 # ---------------------------------------------------------------------------
 # init
@@ -175,11 +187,14 @@ def prefill_attention(q, k, v, cfg: ModelConfig, attn_impl: str, *,
                       causal: bool = True):
     """Prefill self-attention over (B, S, H, hd) tensors: the flash kernel
     (``cuda``) or its plain version (``ref``) on transposed views, or the
-    reference's query-chunked plain code (``auto`` on a CPU tensor):
-    ``layers.causal_attention``, or ``layers.bidir_attention`` for the
-    encoder's non-causal attention."""
-    route = prefill_route(cfg, q, attn_impl)
-    PREFILL_ROUTES[route] += 1
+    reference's query-chunked plain code (``auto`` on a CPU tensor, and
+    ``TRAIN`` on any device): ``layers.causal_attention``, or
+    ``layers.bidir_attention`` for the encoder's non-causal attention."""
+    if attn_impl == TRAIN:  # the train loss counts its layers' calls
+        route = "plain"
+    else:
+        route = prefill_route(cfg, q, attn_impl)
+        PREFILL_ROUTES[route] += 1
     if route == "plain":
         if not causal:
             return L.bidir_attention(q, k, v, cfg.attn_chunk)
@@ -296,6 +311,128 @@ def _attn_layer_full(x, p, cfg: ModelConfig, positions, *,
 def _logits(params: dict, cfg: ModelConfig, h: torch.Tensor) -> torch.Tensor:
     h = L.rms_norm(h, params["final_ln"], cfg.norm_eps)
     return h @ cast_once(params["lm_head"], h.dtype)
+
+
+# ---------------------------------------------------------------------------
+# the train loss
+# ---------------------------------------------------------------------------
+
+
+def train_attention_impl(attn_impl: str) -> None:
+    """Refuse an ``attn_impl`` the train loss cannot take.  Its attention
+    is the reference's plain code on every device (``auto``): neither the
+    Pallas kernel nor the port's flash kernel has a backward, and nothing
+    falls back quietly from a kernel route."""
+    if attn_impl not in ATTN_IMPLS:
+        raise ValueError(f"attn_impl {attn_impl!r}; one of {ATTN_IMPLS}")
+    if attn_impl != "auto":
+        raise NotImplementedError(
+            f"train_loss with attn_impl={attn_impl!r}: the train loss runs "
+            "the reference's plain attention (attn_impl='auto'); the "
+            "flash-attention kernel has no backward")
+
+
+def unstack(stacked: dict) -> list:
+    """The layers of a stacked ``(L, ...)`` parameter dict as L dicts of
+    views, from one ``unbind`` per leaf.  Under autograd, reading layer i
+    as ``v[i]`` would give each layer's backward a zero gradient the size
+    of the whole stack; ``unbind``'s backward stacks the L gradients
+    once."""
+    parts = {k: v.unbind(0) for k, v in stacked.items()}
+    n = len(next(iter(parts.values())))
+    return [{k: t[i] for k, t in parts.items()} for i in range(n)]
+
+
+def cast_at_use(p: dict, dtype: torch.dtype, fp32: tuple = NORMS) -> dict:
+    """One layer's parameters for ``dtype`` compute, cast here, as the
+    reference's ``astype`` does at each use; the ``fp32`` keys as they
+    are.  Inside a checkpointed layer no cast outlives its forward."""
+    return {k: v if k in fp32 else v.to(dtype) for k, v in p.items()}
+
+
+def checkpointed(fn: Callable, *args):
+    """``fn(*args)`` with its activations recomputed in backward instead
+    of kept (``jax.checkpoint``)."""
+    return checkpoint(fn, *args, use_reentrant=False)
+
+
+def _train_layer(x, p, cfg: ModelConfig, positions, mlp: Callable,
+                 fp32: tuple) -> torch.Tensor:
+    p = cast_at_use(p, x.dtype, fp32)
+    x = _attn_layer_full(x, p, cfg, positions, attn_impl=TRAIN)
+    return mlp(x, p, cfg)
+
+
+def cross_entropy(h, lm_head, labels, vocab_chunk: int = 0) -> torch.Tensor:
+    """The mean next-token loss from fp32 logits.  h: (B, S, D) after the
+    final norm; labels: (B, S), -1 masked; divided by max(#unmasked, 1).
+
+    ``vocab_chunk`` > 0 dividing V: a streaming logsumexp over vocab
+    chunks that never holds the (B, S, V) fp32 logits at once (the
+    reference's ``lax.scan``, here a loop over the chunks)."""
+    labels = labels.to(h.device).long()
+    mask = (labels >= 0).float()
+    safe = torch.clamp(labels, min=0)
+    V = lm_head.shape[-1]
+    w = lm_head.to(h.dtype)
+    if not vocab_chunk or V % vocab_chunk:
+        logits = (h @ w).float()
+        lse = torch.logsumexp(logits, dim=-1)
+        ll = logits.gather(-1, safe[..., None])[..., 0]
+    else:
+        c = vocab_chunk
+        m = torch.full(labels.shape, L.NEG_INF, dtype=torch.float32,
+                       device=h.device)
+        s = torch.zeros(labels.shape, dtype=torch.float32, device=h.device)
+        gold = torch.zeros_like(s)
+        for i in range(V // c):
+            lg = (h @ w[:, i * c:(i + 1) * c]).float()
+            nm = torch.maximum(m, lg.amax(dim=-1))
+            s = s * torch.exp(m - nm) + torch.exp(lg - nm[..., None]).sum(-1)
+            loc = safe - i * c
+            hit = (loc >= 0) & (loc < c)
+            g = lg.gather(-1, torch.clamp(loc, 0, c - 1)[..., None])[..., 0]
+            gold = torch.where(hit, g, gold)
+            m = nm
+        lse, ll = m + torch.log(s), gold
+    nll = (lse - ll) * mask
+    return nll.sum() / torch.clamp(mask.sum(), min=1.0)
+
+
+def decoder_train_loss(params: dict, cfg: ModelConfig, batch: dict,
+                       mlp: Callable, *, vocab_chunk: int = 0,
+                       attn_impl: str = "auto",
+                       compute_dtype: torch.dtype = L.COMPUTE_DTYPE,
+                       fp32: tuple = NORMS) -> torch.Tensor:
+    """The decoder-only train loss with the feed-forward sublayer ``mlp``
+    and the ``fp32`` layer parameters as in ``decoder_prefill``; see
+    ``dense_train_loss``."""
+    train_attention_impl(attn_impl)
+    tokens = batch["tokens"]
+    B, S = tokens.shape
+    dev = params["embed"].device
+    h = _embed_tokens(params, cfg, batch, compute_dtype)
+    positions = _positions(cfg, batch, B, S, dev)
+    for p in unstack(params["layers"]):
+        PREFILL_ROUTES["plain"] += 1
+        h = checkpointed(_train_layer, h, p, cfg, positions, mlp, fp32)
+    h = L.rms_norm(h, params["final_ln"], cfg.norm_eps)
+    return cross_entropy(h, params["lm_head"], batch["labels"], vocab_chunk)
+
+
+def dense_train_loss(params: dict, cfg: ModelConfig, batch: dict, *,
+                     vocab_chunk: int = 0, attn_impl: str = "auto",
+                     compute_dtype: torch.dtype = L.COMPUTE_DTYPE
+                     ) -> torch.Tensor:
+    """The next-token loss (0-d fp32) of ``tokens`` (B, S) against
+    ``labels`` (B, S) (-1 masked); qwen2-vl's ``visual_embeds`` and
+    ``mrope_positions`` as in prefill.  Each layer is checkpointed (its
+    activations recomputed in backward, as ``jax.checkpoint`` does in the
+    reference) and casts its weights at use; attention is the reference's
+    plain code (``train_attention_impl``)."""
+    return decoder_train_loss(params, cfg, batch, _mlp_layer,
+                              vocab_chunk=vocab_chunk, attn_impl=attn_impl,
+                              compute_dtype=compute_dtype)
 
 
 # ---------------------------------------------------------------------------

@@ -1,6 +1,6 @@
 """xLSTM in PyTorch: alternating mLSTM (matrix memory) and sLSTM (scalar
-memory) blocks — the port of ``repro.models.xlstm``'s init, prefill and
-decode entry points (training waits: ROADMAP.md §1).
+memory) blocks — the port of ``repro.models.xlstm``: init, the train loss,
+prefill and decode.
 
 - The mLSTM's prefill runs its parallel (attention-like, exp-gated) form
   in query chunks, its scores in fp32 from fp32 operands (the reference
@@ -12,6 +12,10 @@ decode entry points (training waits: ROADMAP.md §1).
   every position of the padded sequence (``mlstm_final_state``), as the
   reference does: a ragged row's state has absorbed its pad tokens
   (ROADMAP.md §3).
+
+The train loss runs the mLSTM's parallel form and the sLSTM's scan over the
+whole sequence and keeps no state; as in the reference, no block is
+checkpointed.
 
 There is no attention and no KV cache: the decode state is (C, n, m) per
 mLSTM block and (c, n, h, m) per sLSTM block, a tuple per block, updated
@@ -28,7 +32,12 @@ import torch.nn.functional as F
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers as L
 from repro_torch.models.layers import cast_once
-from repro_torch.models.transformer import _last_logits, _logits
+from repro_torch.models.transformer import (
+    _last_logits,
+    _logits,
+    cross_entropy,
+    train_attention_impl,
+)
 
 # steps of the two time loops since the counts were last set to 0: the
 # sLSTM's scan (one per position and block) and the mLSTM's final-state
@@ -305,17 +314,37 @@ def _block(h, raw: dict, cfg: ModelConfig, i: int, state=None,
 
 
 def _trunk(params: dict, cfg: ModelConfig, h, states=None,
-           collect: bool = False, compute_dtype=L.COMPUTE_DTYPE):
+           collect: bool = False, compute_dtype=L.COMPUTE_DTYPE,
+           keep_states: bool = True):
     """Every block in order.  ``states`` (decode): one state tuple per
-    block.  ``collect`` (prefill): also the mLSTM's final state.  Returns
-    (h, the new states)."""
+    block.  ``collect`` (prefill): also the mLSTM's final state.
+    ``keep_states`` False (the train loss): no state is kept.  Returns (h,
+    the new states, or None)."""
     new_states = []
     for i, raw in enumerate(params["blocks"]):
         h, ns = _block(h, raw, cfg, i,
                        state=states[i] if states is not None else None,
                        collect=collect, compute_dtype=compute_dtype)
-        new_states.append(ns)
-    return h, new_states
+        if keep_states:
+            new_states.append(ns)
+    return h, new_states if keep_states else None
+
+
+def xlstm_train_loss(params: dict, cfg: ModelConfig, batch: dict, *,
+                     vocab_chunk: int = 0, attn_impl: str = "auto",
+                     compute_dtype: torch.dtype = L.COMPUTE_DTYPE
+                     ) -> torch.Tensor:
+    """The next-token loss of ``tokens`` against ``labels`` (B, S), -1
+    masked, through every block over the whole sequence (the sLSTM's time
+    loop, counted in ``LOOP_STEPS``) with no state kept.  ``attn_impl``
+    is checked as for every family (no block attends)."""
+    train_attention_impl(attn_impl)
+    tokens = batch["tokens"]
+    h = params["embed"][tokens.long()].to(compute_dtype)
+    h, _ = _trunk(params, cfg, h, compute_dtype=compute_dtype,
+                  keep_states=False)
+    h = L.rms_norm(h, params["final_ln"], cfg.norm_eps)
+    return cross_entropy(h, params["lm_head"], batch["labels"], vocab_chunk)
 
 
 def xlstm_prefill(params: dict, cfg: ModelConfig, batch: dict, *,

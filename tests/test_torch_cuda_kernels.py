@@ -923,3 +923,44 @@ def test_hybrid_decode_crosses_the_ring_on_paged(card, dtype):
         assert t_kernel.launches == before + n_super
         _chain_close(got, want, dtype)
     assert T.decode_route(cfg, got, "auto") == "paged"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["tinyllama-1.1b", "mixtral-8x22b",
+                                  "seamless-m4t-medium", "zamba2-2.7b",
+                                  "xlstm-125m"])
+def test_train_step_on_the_card_matches_the_cpu(card, name):
+    """One fp32 train step of a reduced config on the card against the
+    same step on the CPU: the loss within 1e-5 (relative), every
+    gradient within 1e-4 in relative L2 norm; no kernel launches inside
+    the train loss, whose attention is counted on the plain route."""
+    from repro_torch.configs import get_reduced_config
+    from repro_torch.data.pipeline import DataConfig, TokenPipeline
+    from repro_torch.models import transformer as T
+    from repro_torch.models.model import build_model
+    from repro_torch.training.train_loop import value_and_grad
+    from repro_torch.tree import tree_leaves, tree_map
+
+    cfg = get_reduced_config(name)
+    model = build_model(cfg, torch.float32)
+    params = model.init(torch.Generator().manual_seed(0), "cpu")
+    batch = {k: torch.from_numpy(v) for k, v in TokenPipeline(DataConfig(
+        cfg.vocab_size, global_batch=2, seq_len=40)).batch_at(0).items()}
+    if cfg.family == "encdec":
+        batch["frames"] = 0.1 * torch.randn(
+            2, 24, cfg.d_model, generator=torch.Generator().manual_seed(1))
+    want_loss, want = value_and_grad(model, params, batch)
+    for m in (t_kernel, flash_kernel, lora_kernel):
+        m.launches = 0
+    for k in T.PREFILL_ROUTES:
+        T.PREFILL_ROUTES[k] = 0
+    loss, grads = value_and_grad(model, tree_map(lambda t: t.to(card),
+                                                 params),
+                                 {k: v.to(card) for k, v in batch.items()})
+    assert (t_kernel.launches, flash_kernel.launches,
+            lora_kernel.launches) == (0, 0, 0)
+    assert T.PREFILL_ROUTES["flash"] == T.PREFILL_ROUTES["flash_ref"] == 0
+    assert abs(float(loss) - float(want_loss)) <= 1e-5 * float(want_loss)
+    for g, w in zip(tree_leaves(grads), tree_leaves(want)):
+        err = float((g.cpu() - w).norm()) / max(float(w.norm()), 1e-30)
+        assert err <= 1e-4, err

@@ -83,30 +83,33 @@ PORTED_NAMES = {
     "repro_torch.models.transformer": (
         "init_dense", "dense_prefill", "dense_decode_step",
         "init_cache_shape", "_embed_tokens", "_positions", "_qkv",
-        "_attn_layer_full", "_dense_layer_fwd"),
+        "_attn_layer_full", "_dense_layer_fwd", "cross_entropy",
+        "dense_train_loss"),
     "repro_torch.models.model": ("Model", "build_model",
                                  "params_from_numpy", "cache_from_numpy"),
     "repro_torch.models.moe": ("init_moe_layer", "init_moe",
                                "router_weights", "_moe_mlp",
                                "_moe_layer_fwd", "moe_prefill",
-                               "moe_decode_step"),
+                               "moe_decode_step", "moe_train_loss"),
     "repro_torch.models.moe_dispatch": ("moe_dispatch_mlp",
                                         "dropped_fraction"),
     "repro_torch.models.mamba2": ("mamba_dims", "init_mamba_layer",
                                   "init_zamba", "_conv1d_causal", "ssd_scan",
                                   "mamba_forward", "shared_attn_block",
                                   "_zamba_trunk", "zamba_prefill",
-                                  "zamba_decode_step"),
+                                  "zamba_decode_step", "zamba_train_loss"),
     "repro_torch.models.xlstm": ("_dims", "init_mlstm_block",
                                  "init_slstm_block", "init_xlstm",
                                  "_mlstm_parallel", "_mlstm_step",
                                  "mlstm_block", "mlstm_final_state",
                                  "_slstm_scan", "slstm_block", "_trunk",
-                                 "xlstm_prefill", "xlstm_decode_step"),
+                                 "xlstm_prefill", "xlstm_decode_step",
+                                 "xlstm_train_loss"),
     "repro_torch.models.encdec": ("init_enc_layer", "init_dec_layer",
                                   "init_encdec", "bidir_attention", "_mlp",
                                   "encode", "_dec_layer_full",
-                                  "encdec_prefill", "encdec_decode_step"),
+                                  "encdec_prefill", "encdec_decode_step",
+                                  "encdec_train_loss"),
     "repro_torch.examples.quickstart": ("main",),
     "repro_torch.core.peft": ("shared_param_fraction",),
     "repro_torch.serving.request": ("Request", "generate_trace",
@@ -121,6 +124,16 @@ PORTED_NAMES = {
     "repro_torch.serving.engine": ("adaptive_serving_similarity",),
     "repro_torch.launch.serve": ("run_sim", "run_real", "main"),
     "repro_torch.examples.serve_multitenant": ("main",),
+    "repro_torch.data.pipeline": ("DataConfig", "TokenPipeline"),
+    "repro_torch.training.optimizer": ("AdamWConfig", "adamw_init",
+                                       "global_norm", "adamw_update"),
+    "repro_torch.training.train_loop": ("TrainConfig", "_compress",
+                                        "make_train_step", "train"),
+    "repro_torch.checkpoint": ("Checkpointer", "install_preemption_hook"),
+    "repro_torch.checkpoint.checkpointer": ("Checkpointer",
+                                            "install_preemption_hook"),
+    "repro_torch.launch.train": ("main",),
+    "repro_torch.examples.train_and_partition": ("main",),
 }
 
 
@@ -132,6 +145,23 @@ def test_ported_module_has_its_names(module):
     for name in PORTED_NAMES[module]:
         assert hasattr(mod, name), f"{module}.{name}"
     assert module in _modules()  # so the import checks above cover it
+
+
+def test_every_family_has_a_train_loss():
+    """No module of the port raises ``NotImplementedError`` for training:
+    ``build_model`` wires a train loss for every family."""
+    from repro_torch.configs import get_config, list_configs
+    from repro_torch.models import model
+
+    assert not hasattr(model, "TRAINING_ITEM")
+    families = set()
+    for name in list_configs():
+        m = model.build_model(get_config(name))
+        assert callable(m._fns["train_loss"]), name
+        families.add(get_config(name).family)
+    assert families == {"dense", "moe", "hybrid", "ssm", "encdec"}
+    for path in sorted(PKG.rglob("*.py")):
+        assert "training is not ported" not in path.read_text(), path
 
 
 def test_zoo_has_equivalent_blocks():
