@@ -154,7 +154,24 @@ script exits non-zero without printing a result:
    fresh zoo with a LoRA app, ``profile_block``, 8 requests served through
    the three kernels (launches equal to the executor's counters), the
    base app's tokens equal to the Model API's on a fresh copy of the
-   weights at a clear margin.
+   weights at a clear margin;
+12. the mesh code: mesh -- a real one-rank ``nccl`` process group and
+   ``make_local_mesh()``'s (1, 1) ``DeviceMesh``; TinyLlama-1.1B whole
+   through ``launch.steps.build_cell`` on DTensors: the train cell at
+   train_dense's shape (8 x 512, default AdamW) for two steps of the
+   pipeline's batches, held against ``make_train_step`` on the same
+   batches and initial state (losses and every parameter and moment
+   bitwise); the prefill and decode cells at model_api's traffic (4
+   prompts of seed 11 padded to 512, the cache padded to 576, 64 greedy
+   steps), the prefill logits and the 256 tokens held against the Model
+   API called directly, flash 22 a prefill and paged 22 a step; the
+   trained state saved whole and restored with ``shardings=`` onto the
+   mesh, bitwise; then the dry-run records of two production cells
+   (``launch.dryrun``, each in its own process, started with the script
+   and traced on the ``meta`` device under a ``fake`` group of 256 or 512
+   ranks: nothing runs on the card) with their per-device FLOPs, bytes,
+   collective bytes by kind and trace time, and the roofline table over
+   them.
 
 The line before the last two gives each kernel's launches on the main
 paths, its largest error against its plain version at their shapes, and
@@ -182,12 +199,17 @@ ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
 import torch  # noqa: E402
+from torch.distributed.tensor import DTensor  # noqa: E402
 
 from repro_torch.checkpoint import (  # noqa: E402
     Checkpointer,
     install_preemption_hook,
 )
-from repro_torch.configs import get_config, get_reduced_config  # noqa: E402
+from repro_torch.configs import (  # noqa: E402
+    ShapeConfig,
+    get_config,
+    get_reduced_config,
+)
 from repro_torch.core import peft  # noqa: E402
 from repro_torch.core.peft import shared_param_fraction  # noqa: E402
 from repro_torch.core.blocks import (  # noqa: E402
@@ -227,7 +249,10 @@ from repro_torch.kernels.paged_attention.ops import (  # noqa: E402
 from repro_torch.kernels.paged_attention.ref import (  # noqa: E402
     paged_attention_ref,
 )
+from repro_torch.launch import mesh as MESH  # noqa: E402
+from repro_torch.launch import roofline  # noqa: E402
 from repro_torch.launch import serve as launcher  # noqa: E402
+from repro_torch.launch.steps import build_cell, place  # noqa: E402
 from repro_torch.models import layers as L  # noqa: E402
 from repro_torch.models import moe as M  # noqa: E402
 from repro_torch.models import transformer as T  # noqa: E402
@@ -2577,18 +2602,21 @@ def hybrid_vs_ref(model, params, tokens, lens, max_len, forced, what):
     hops = []
 
     def twin(x, h0, p, cfg, positions, *, attn_impl="auto", cache=None,
-             attn=None, layer_idx=None, compute_dtype=L.COMPUTE_DTYPE):
+             attn=None, layer_idx=None, compute_dtype=L.COMPUTE_DTYPE,
+             shd=None):
         if cache is None:
-            want, _ = block(x, h0, p, cfg, positions, attn_impl="ref")
+            want, _ = block(x, h0, p, cfg, positions, attn_impl="ref",
+                            shd=shd)
         else:
             one = {k: v[layer_idx:layer_idx + 1].clone()
                    for k, v in cache.items()}
             plan = T.DecodeAttention.plan(cfg, x, "ref", one, attn.kv_len)
             want, _ = block(x, h0, p, cfg, positions, cache=one, attn=plan,
-                            layer_idx=0, compute_dtype=compute_dtype)
+                            layer_idx=0, compute_dtype=compute_dtype,
+                            shd=shd)
         out = block(x, h0, p, cfg, positions, attn_impl=attn_impl,
                     cache=cache, attn=attn, layer_idx=layer_idx,
-                    compute_dtype=compute_dtype)
+                    compute_dtype=compute_dtype, shd=shd)
         keep = torch.ones(want.shape[:-1], dtype=torch.bool,
                           device=want.device)
         err, ratio = hop_ratio(out[0].float(), want.float(), keep)
@@ -3499,6 +3527,314 @@ def train_phases(smi):
              "train_handoff": handoff_launches}, rows, took)
 
 
+# mesh: TinyLlama-1.1B's cells through build_cell on the (1, 1) mesh, two
+# train steps; the dry-run's cells, each traced in its own process
+MESH_TRAIN_STEPS = 2
+DRYRUN_CELLS = (("tinyllama-1.1b", "train_4k", "single"),
+                ("mixtral-8x22b", "decode_32k", "multi"))
+DRYRUN_TAG = "chip_smoke"
+DRYRUN_TIMEOUT_S = 900
+MESH_CKPT = ROOT / ".train_ckpt" / "mesh"
+
+
+def start_dryruns():
+    """The dry-run cells, one process each, started together: they trace
+    on the host's CPU (``meta`` tensors under a ``fake`` group) while the
+    card's phases run.  Returns [(cell, Popen, start time)]."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out = []
+    for arch, shape, mesh in DRYRUN_CELLS:
+        cmd = [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+               arch, "--shape", shape, "--mesh", mesh, "--tag", DRYRUN_TAG]
+        out.append(((arch, shape, mesh),
+                    subprocess.Popen(cmd, env=env, cwd=ROOT,
+                                     stdout=subprocess.PIPE,
+                                     stderr=subprocess.PIPE, text=True),
+                    time.perf_counter()))
+    return out
+
+
+def finish_dryruns(procs):
+    """Wait for each dry-run process (killed at ``DRYRUN_TIMEOUT_S`` after
+    its start) and read its record; any failure raises."""
+    recs = []
+    for (arch, shape, mesh), proc, t0 in procs:
+        left = max(1.0, DRYRUN_TIMEOUT_S - (time.perf_counter() - t0))
+        try:
+            stdout, stderr = proc.communicate(timeout=left)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.communicate()
+            raise RuntimeError(f"dryrun {arch} {shape} {mesh}: no record "
+                               f"after {DRYRUN_TIMEOUT_S} s")
+        if proc.returncode != 0:
+            raise RuntimeError(f"dryrun {arch} {shape} {mesh}: exit "
+                               f"{proc.returncode}\n{stdout[-2000:]}\n"
+                               f"{stderr[-4000:]}")
+        path = roofline.DRYRUN_DIR / \
+            f"{DRYRUN_TAG}__{arch}__{shape}__{mesh}.json"
+        rec = json.loads(path.read_text())
+        h = rec["hlo_per_device"]
+        if not (h["flops"] > 0 and h["bytes"] > 0
+                and rec["model_flops"] > 0):
+            raise RuntimeError(f"dryrun {arch} {shape} {mesh}: record {h}")
+        recs.append(rec)
+    return recs
+
+
+def full(x):
+    return x.full_tensor() if isinstance(x, DTensor) else x
+
+
+def first_diff(got, want) -> dict:
+    """Where two trees of tensors differ: the count of leaves not bitwise
+    equal and the largest difference."""
+    bad, worst = 0, 0.0
+    for a, b in zip(tree_leaves(got), tree_leaves(want)):
+        a, b = full(a), full(b)
+        if not torch.equal(a, b):
+            bad += 1
+            worst = max(worst, float((a.float() - b.float()).abs().max()))
+    return {"leaves_not_bitwise": bad, "max_abs_diff": worst}
+
+
+def mesh_train(mesh, smi):
+    """The train cell at train_dense's shape for ``MESH_TRAIN_STEPS`` steps
+    of the pipeline's batches, then ``make_train_step`` on the same
+    batches from the same initial state: losses and state bitwise.
+    Returns (launches, row part, the cell's final state, its placements)."""
+    cfg = get_config(TRAIN_MODEL)
+    model = build_model(cfg)
+    params = model.init(torch.Generator(DEVICE).manual_seed(TRAIN_SEED))
+    opt = adamw_init(params)
+    pipe = TokenPipeline(DataConfig(cfg.vocab_size, TRAIN_B, TRAIN_S,
+                                    seed=TRAIN_SEED))
+    shape = ShapeConfig("train_dense", TRAIN_S, TRAIN_B, "train")
+    t0 = time.perf_counter()
+    fn, structs, in_pl, out_pl, donate = build_cell(cfg, shape, mesh)
+    build_s = time.perf_counter() - t0
+    if donate != (0, 1):
+        raise RuntimeError(f"mesh train: donated {donate}")
+    settle()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    reset_routes()
+    carry = {"params": place(params, in_pl[0], mesh),
+             "opt": place(opt, in_pl[1], mesh)}
+
+    def cell(p, o, batch):
+        p, o, loss = fn(p, o, place(batch, in_pl[2], mesh))
+        return p, o, {"loss": full(loss)}
+
+    losses, walls = run_train_steps(cell, carry, pipe,
+                                    range(MESH_TRAIN_STEPS))
+    launches = read_launches()
+    routes = all_routes()
+    peak = torch.cuda.max_memory_allocated()
+    want_routes = {k: 0 for k in routes}
+    want_routes["prefill_plain"] = cfg.num_layers * MESH_TRAIN_STEPS
+    if any(launches.values()) or routes != want_routes:
+        raise RuntimeError(f"mesh train: launches {launches}, routes "
+                           f"{routes}; want none and {want_routes}")
+    ref = {"params": params, "opt": opt}
+    ref_losses, ref_walls = run_train_steps(
+        make_train_step(model, TrainConfig()), ref, pipe,
+        range(MESH_TRAIN_STEPS))
+    diff = first_diff((carry["params"], carry["opt"]),
+                      (ref["params"], ref["opt"]))
+    bitwise = losses == ref_losses and diff["leaves_not_bitwise"] == 0
+    if not bitwise:
+        rel = max(abs(a - b) / abs(b) for a, b in zip(losses, ref_losses))
+        if not (np.isfinite(losses).all()
+                and rel <= TOL[torch.bfloat16]):
+            raise RuntimeError(f"mesh train: cell losses {losses}, "
+                               f"make_train_step {ref_losses}; {diff}")
+    del ref, params, opt
+    tokens = TRAIN_B * TRAIN_S
+    part = {"train": {
+        "shape": [TRAIN_B, TRAIN_S], "steps": MESH_TRAIN_STEPS,
+        "build_cell_s": build_s, "losses": losses,
+        "make_train_step_losses": ref_losses,
+        "step_walls_s": walls, "make_train_step_walls_s": ref_walls,
+        "tokens_per_s_last_step": tokens / walls[-1],
+        "make_train_step_tokens_per_s_last_step": tokens / ref_walls[-1],
+        "bitwise_vs_make_train_step": bitwise, **diff,
+        "max_memory_allocated_bytes": peak, "launches": launches,
+        "routes": {k: v for k, v in routes.items() if v},
+        "placements": {"wq": str(in_pl[0]["layers"]["wq"]),
+                       "tokens": str(in_pl[2]["tokens"])}}}
+    return launches, part, carry, in_pl
+
+
+def mesh_serve(mesh):
+    """The prefill and decode cells at model_api's traffic against the
+    Model API on the same weights.  Returns ({path: launches}, row
+    part)."""
+    cfg = get_config(MODEL)
+    model = build_model(cfg)
+    params = model.init(torch.Generator(DEVICE).manual_seed(0))
+    tokens, lens = api_prompts(cfg, API_B, API_S, API_PROMPTS, API_SEED)
+    pre = build_cell(cfg, ShapeConfig("api_prefill", API_S, API_B,
+                                      "prefill"), mesh)
+    dec = build_cell(cfg, ShapeConfig("api_decode", API_MAX, API_B,
+                                      "decode"), mesh)
+    p_pre = place(params, pre[2][0], mesh)
+    p_dec = place(params, dec[2][0], mesh)
+    batch = place({"tokens": tokens, "prompt_lens": lens}, pre[2][1], mesh)
+    L_ = cfg.num_layers
+
+    def run():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, cache, _ = pre[0](p_pre, batch)
+        # the decode cell's cache: the prefill's, padded from S to API_MAX
+        cache = place({k: torch.nn.functional.pad(
+            full(v), (0, 0, 0, 0, 0, API_MAX - API_S)) for k, v in
+            cache.items()}, dec[2][1], mesh)
+        logits = full(logits)
+        nxt = logits.argmax(-1)
+        torch.cuda.synchronize()
+        prefill_s = time.perf_counter() - t0
+        toks, out, step_s = [nxt], [logits.float()], []
+        for j in range(API_GEN):
+            t1 = time.perf_counter()
+            step = place({"tokens": nxt[:, None].to(torch.int32),
+                          "kv_len": lens + j}, dec[2][2], mesh)
+            logits, cache = dec[0](p_dec, cache, step)
+            nxt = full(logits).argmax(-1)
+            torch.cuda.synchronize()
+            step_s.append(time.perf_counter() - t1)
+            toks.append(nxt)
+            out.append(full(logits).float())
+        return torch.stack(toks, 1), torch.stack(out), prefill_s, step_s
+
+    run()  # warm-up: DTensor's sharding rules, the casts, cuBLAS
+    settle()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    reset_routes()
+    logits, cache, _ = pre[0](p_pre, batch)
+    torch.cuda.synchronize()
+    pre_launches, pre_routes = read_launches(), all_routes()
+    reset_launches()
+    reset_routes()
+    del logits, cache
+    got_tok, got, prefill_s, step_s = run()
+    launches = read_launches()
+    routes = dict(T.DECODE_ROUTES)
+    peak = torch.cuda.max_memory_allocated()
+    want_pre = {"paged_attention": 0, "flash_attention": L_,
+                "batched_lora": 0}
+    # run() prefills once more before its decode steps
+    want_dec = {"paged_attention": L_ * API_GEN, "flash_attention": L_,
+                "batched_lora": 0}
+    if pre_launches != want_pre or pre_routes["prefill_flash"] != L_ \
+            or launches != want_dec or routes["paged"] != L_ * API_GEN:
+        raise RuntimeError(f"mesh serve: prefill launches {pre_launches} "
+                           f"(want {want_pre}), prefill + decode "
+                           f"{launches} (want {want_dec}), routes {routes}")
+    want_tok, want, _, _ = api_run(model, params, tokens, lens, API_MAX,
+                                   API_GEN, "auto")
+    logits_bitwise = torch.equal(got[0], want[0])
+    tokens_equal = int((got_tok[:, :API_GEN] == want_tok[:, :API_GEN])
+                       .sum())
+    if not (torch.isfinite(got).all() and got.shape == want.shape):
+        raise RuntimeError(f"mesh serve: logits {tuple(got.shape)}")
+    if logits_bitwise and tokens_equal == API_B * API_GEN \
+            and torch.equal(got, want):
+        held = {"bitwise": True}
+    else:  # DTensor changed some op's order: the Model API's chain bound
+        held = {"bitwise": False, **hold_logits(got, want, "mesh serve")}
+    prompt_tokens = int(lens.sum())
+    part = {"serve": {
+        "batch": API_B, "padded_S": API_S, "max_len": API_MAX,
+        "decode_steps": API_GEN, "prompt_lens": lens.tolist(),
+        "prefill_logits_bitwise": logits_bitwise,
+        "tokens_equal": tokens_equal, "tokens_compared": API_B * API_GEN,
+        "vs_model_api": held,
+        "prefill_s": prefill_s, "prefill_tok_per_s": prompt_tokens / prefill_s,
+        "decode_step_wall_p50_s": float(np.percentile(step_s, 50)),
+        "decode_tok_per_s": API_B * API_GEN / sum(step_s),
+        "max_memory_allocated_bytes": peak,
+        "prefill_launches": pre_launches, "decode_launches": {
+            k: v - want_pre[k] for k, v in launches.items()},
+        "routes": routes,
+        "placements": {"wq": str(pre[2][0]["layers"]["wq"]),
+                       "cache_k": str(dec[2][1]["k"])}}}
+    del p_pre, p_dec, params
+    return {"mesh_prefill": pre_launches,
+            "mesh_decode": {k: v - want_pre[k] for k, v in launches.items()}
+            }, part
+
+
+def mesh_restore(mesh, state, placements):
+    """The trained cell state saved whole and restored with
+    ``shardings=`` onto the mesh: bitwise, and placed as it was."""
+    shutil.rmtree(MESH_CKPT, ignore_errors=True)
+    ckpt = Checkpointer(str(MESH_CKPT))
+    t0 = time.perf_counter()
+    ckpt.save(MESH_TRAIN_STEPS, state, blocking=True)
+    save_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    back = ckpt.restore(state, shardings=placements, mesh=mesh)
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t0
+    diff = first_diff(back, state)
+    placed = all(isinstance(b, DTensor) and b.placements == a.placements
+                 for a, b in zip(tree_leaves(state), tree_leaves(back)))
+    nbytes = sum(full(t).numel() * full(t).element_size()
+                 for t in tree_leaves(state))
+    shutil.rmtree(MESH_CKPT, ignore_errors=True)
+    if diff["leaves_not_bitwise"] or not placed:
+        raise RuntimeError(f"mesh restore: {diff}, placements kept: "
+                           f"{placed}")
+    return {"restore": {"bytes": nbytes, "leaves": len(tree_leaves(state)),
+                        "save_s": save_s, "restore_s": restore_s,
+                        "bitwise": True, "placements_kept": placed}}
+
+
+def mesh_phase(dryruns, smi):
+    """A real one-rank nccl group and its (1, 1) mesh; TinyLlama-1.1B's
+    train, prefill and decode cells through ``build_cell``, the restore
+    onto the mesh, then the dry-run records and their roofline.  Returns
+    ({path: launches}, row)."""
+    resident = settle()
+    MESH.init_local_process_group("nccl")
+    try:
+        mesh = MESH.make_local_mesh()
+        if mesh.shape != (1, 1) or \
+                mesh.device_type != torch.device(DEVICE).type:
+            raise RuntimeError(f"mesh: {mesh}")
+        train_launches, row, state, in_pl = mesh_train(mesh, smi)
+        row.update(mesh_restore(mesh, {"params": state["params"],
+                                       "opt": state["opt"]},
+                                {"params": in_pl[0], "opt": in_pl[1]}))
+        del state
+        serve_launches, part = mesh_serve(mesh)
+        row.update(part)
+    finally:
+        torch.distributed.destroy_process_group()
+    recs = finish_dryruns(dryruns)
+    table = "\n".join(
+        [roofline.table(DRYRUN_TAG, m)[0] for m in ("single", "multi")])
+    print(table, flush=True)
+    row = {"phase": "mesh", "model": MODEL, "mesh": [1, 1],
+           "backend": "nccl", **row,
+           "dryrun": [{
+               "arch": r["arch"], "shape": r["shape"], "mesh": r["mesh"],
+               "chips": r["chips"], "trace_s": r["trace_s"],
+               "flops_per_device": r["hlo_per_device"]["flops"],
+               "bytes_per_device": r["hlo_per_device"]["bytes"],
+               "collective_bytes_per_device":
+               r["hlo_per_device"]["collectives"],
+               "collective_counts": r["hlo_per_device"]["collective_counts"],
+               "model_flops": r["model_flops"],
+               "roofline": roofline.terms(r)} for r in recs],
+           "resident_bytes_at_start": resident, "card": smi}
+    emit(row)
+    return {"mesh_train": train_launches, **serve_launches}, row
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device; this script runs only "
@@ -3508,6 +3844,7 @@ def main():
     torch.backends.cudnn.allow_tf32 = False
     smi = nvidia_smi()
     print(smi, flush=True)
+    dryruns = start_dryruns()  # on the host's CPU, beside the card's work
     t0 = time.perf_counter()
     # one nvcc per source, all started together
     _build.build_all(Path(ROOT / src) for _, src, _ in KERNELS.values())
@@ -3639,6 +3976,9 @@ def main():
     phase_s["stablelm"] = time.perf_counter() - t0
     train_launches, train, train_s = train_phases(smi)
     phase_s.update(train_s)
+    t0 = time.perf_counter()
+    mesh_launches, mesh = mesh_phase(dryruns, smi)
+    phase_s["mesh"] = time.perf_counter() - t0
 
     # each main-path run: counts set to 0 just before, read just after
     by_path = {"engine": eng_launches, **{
@@ -3647,7 +3987,8 @@ def main():
         "launch": launch_launches, "model_api": api_launches,
         "model_api_int8": int8_launches, "cross_size": cross_launches,
         **moe_launches, "encdec": enc_launches, **hyb_launches,
-        "ssm": ssm_launches, "stablelm": stable_launches, **train_launches}
+        "ssm": ssm_launches, "stablelm": stable_launches, **train_launches,
+        **mesh_launches}
     # the shape each kernel's ms stands for: paged attention's decode
     # batch; flash's costliest prefill call (the long path's largest
     # group); LoRA's decode q projection at the engine's app-lora batch,
@@ -3710,7 +4051,10 @@ def main():
           "stablelm_decode_tok_per_s": stable["decode_tok_per_s"],
           "train_step_wall_p50_s": train["train_dense"]["step_wall_p50_s"],
           "train_tokens_per_s": train["train_dense"]["tokens_per_s"],
-          "train_handoff_tok_per_s": train["train_handoff"]["tok_per_s"]})
+          "train_handoff_tok_per_s": train["train_handoff"]["tok_per_s"],
+          "mesh_train_tokens_per_s":
+          mesh["train"]["tokens_per_s_last_step"],
+          "mesh_decode_tok_per_s": mesh["serve"]["decode_tok_per_s"]})
     emit({"kernels": line})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

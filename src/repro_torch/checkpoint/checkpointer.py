@@ -12,8 +12,11 @@
   ``max_to_keep`` are deleted.
 - restore: the tree of a template's structure, each leaf checked against
   the template's shape and dtype, on the template leaf's device or the
-  one given.  The reference's ``shardings`` (restoring onto another mesh)
-  comes with the mesh code: passing it raises.
+  one given; with ``shardings`` (a tree of DTensor placements, as
+  ``launch.shardings.named_tree`` gives) and ``mesh``, each leaf is placed
+  on that mesh from its host copy (elastic restore onto any mesh).  A
+  DTensor leaf is saved whole (``full_tensor``), so a checkpoint stays
+  mesh-free and the same bytes as the reference writes.
 - preemption: ``install_preemption_hook`` writes a blocking checkpoint on
   SIGTERM.
 """
@@ -29,6 +32,7 @@ from typing import Any, Optional
 
 import numpy as np
 import torch
+from torch.distributed.tensor import DTensor, distribute_tensor
 
 from repro_torch.tree import tree_flatten_with_paths, tree_unflatten
 
@@ -40,6 +44,8 @@ def _to_host(t) -> np.ndarray:
     the tensor)."""
     if not isinstance(t, torch.Tensor):
         return np.array(t)
+    if isinstance(t, DTensor):
+        t = t.full_tensor()
     if t.dtype == torch.bfloat16:
         raise TypeError("checkpoint leaves are numpy dtypes: a bf16 leaf "
                         "has none (training keeps fp32 parameters)")
@@ -111,14 +117,20 @@ class Checkpointer:
         return int(steps[-1].name.split("_")[1])
 
     def restore(self, template: Any, *, step: Optional[int] = None,
-                device=None, shardings: Any = None) -> Any:
+                device=None, shardings: Any = None, mesh=None) -> Any:
         """The checkpoint of ``step`` (default the latest) as a tree of
         ``template``'s structure, each leaf a tensor of the template leaf's
-        shape and dtype on ``device`` (default the template leaf's)."""
+        shape and dtype on ``device`` (default the template leaf's).  With
+        ``shardings`` (placements for each leaf, a tree of the template's
+        structure) each leaf is a DTensor on ``mesh`` instead: every rank
+        reads the file and keeps its own shard."""
         if shardings is not None:
-            raise NotImplementedError(
-                "restoring onto a mesh (shardings) comes with the mesh code "
-                "(ROADMAP.md §1)")
+            if mesh is None:
+                raise ValueError("restore(shardings=...) needs the mesh")
+            from repro_torch.launch.shardings import zip_map
+
+            shard_leaves = tree_flatten_with_paths(
+                zip_map(lambda _, pl: _Leaf(pl), template, shardings))[0]
         if step is None:
             step = self.latest_step()
         if step is None:
@@ -130,15 +142,29 @@ class Checkpointer:
             raise ValueError(f"tree mismatch: {len(leaves)} leaves, the "
                              f"checkpoint {len(manifest['leaves'])}")
         out = []
-        for meta, ref, path in zip(manifest["leaves"], leaves, paths):
+        for i, (meta, ref, path) in enumerate(zip(manifest["leaves"], leaves,
+                                                  paths)):
             arr = np.load(ckpt_dir / meta["file"])
             t = torch.from_numpy(arr)
             if tuple(t.shape) != tuple(ref.shape) or t.dtype != ref.dtype:
                 raise ValueError(f"{path}: checkpoint {tuple(t.shape)} "
                                  f"{t.dtype}, template {tuple(ref.shape)} "
                                  f"{ref.dtype}")
-            out.append(t.to(device if device is not None else ref.device))
+            if shardings is not None:
+                out.append(distribute_tensor(
+                    t.to(mesh.device_type), mesh,
+                    shard_leaves[i].placements, src_data_rank=None))
+            else:
+                out.append(t.to(device if device is not None
+                                else ref.device))
         return tree_unflatten(template, out)
+
+
+class _Leaf:
+    """One leaf's placements, boxed so a tree walk does not enter them."""
+
+    def __init__(self, placements):
+        self.placements = placements
 
 
 def install_preemption_hook(ckpt: Checkpointer, get_state,

@@ -5,8 +5,9 @@
     # on the CPU
     PYTHONPATH=src python -m repro_torch.launch.train --arch tinyllama-1.1b --reduced --steps 50 --device cpu
 
-The reference's production lowering (``repro.launch.dryrun``) comes with
-the mesh code (ROADMAP.md §1).
+The production meshes' cells are traced by ``repro_torch.launch.dryrun``
+(the reference's ``repro.launch.dryrun``), and run for real on a local
+mesh through ``repro_torch.launch.steps.build_cell``.
 """
 from __future__ import annotations
 

@@ -23,9 +23,17 @@ import math
 from typing import Optional, Tuple
 
 import torch
+from torch.distributed.tensor import DTensor, Shard
 from torch.utils.weak import WeakIdKeyDictionary
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.models.sharding import (
+    head_shards,
+    local_as,
+    on_head_shards,
+    project,
+    reshape,
+)
 
 # bf16 activations by default; fp32 weights are cast at use (DESIGN.md §2)
 COMPUTE_DTYPE = torch.bfloat16
@@ -142,7 +150,7 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float,
             raise ValueError(f"M-RoPE positions {tuple(positions.shape)}: "
                              f"want (B, S, {len(mrope_sections)})")
         sec = _mrope_slots(mrope_sections, hd // 2).to(positions.device)
-        pos = positions.float()[..., sec]  # (B, S, hd/2)
+        pos = positions.float().index_select(-1, sec)  # (B, S, hd/2)
         ang = pos * inv[None, None, :]
     else:
         ang = positions.float()[..., None] * inv[None, None, :]  # (B,S,hd/2)
@@ -154,18 +162,44 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float,
 
 
 # ---------------------------------------------------------------------------
+# GQA sharding helper: KV-head replication (DESIGN.md §5)
+# ---------------------------------------------------------------------------
+
+
+def kv_replication_factor(num_heads: int, num_kv_heads: int, axis_size: int) -> int:
+    """Pick r | (H/KVH) maximizing TP utilization of KVH*r heads on axis_size
+    shards; ties -> smaller r (less KV memory)."""
+    group = num_heads // num_kv_heads
+    best_r, best_util = 1, -1.0
+    for r in range(1, group + 1):
+        if group % r:
+            continue
+        kvh = num_kv_heads * r
+        util = kvh / (math.ceil(kvh / axis_size) * axis_size)
+        if util > best_util + 1e-9:
+            best_r, best_util = r, util
+        if util >= 1.0:
+            break  # smallest perfectly-divisible r
+    return best_r
+
+
+# ---------------------------------------------------------------------------
 # attention (reference, query-chunked)
 # ---------------------------------------------------------------------------
 
 
-def _causal_chunk_attn(q_chunk, k, v, q_start: int, window: int):
+def _causal_chunk_attn(q_chunk, k, v, q_start: int, window: int, shd=None):
     """q_chunk: (B, C, H, G, hd) grouped query; k/v: (B, S, H, hd).
 
     Masked softmax over keys [0, S) with a causal (+ optional sliding
     window) mask relative to absolute query positions q_start..q_start+C.
+    ``shd`` (``models.sharding.ShardingCtx``) places the query chunk and
+    the (B, H, G, C, S) scores and probabilities, as in the reference.
     """
     B, C, H, G, hd = q_chunk.shape
     S = k.shape[1]
+    if shd is not None:
+        q_chunk = shd.q_rep(q_chunk)
     # fp32 operands: the reference contracts bf16 with an fp32 accumulator
     scores = torch.einsum("bchgd,bshd->bhgcs", q_chunk.float(),
                           k.float()) / math.sqrt(hd)
@@ -175,27 +209,48 @@ def _causal_chunk_attn(q_chunk, k, v, q_start: int, window: int):
     if window:
         mask &= kpos > qpos - window
     scores = scores.masked_fill(~mask[None, None, None], NEG_INF)
+    if shd is not None:
+        scores = shd.scores(scores)
     probs = torch.softmax(scores, dim=-1)
+    if shd is not None:
+        probs = shd.scores(probs)
     return torch.einsum("bhgcs,bshd->bchgd", probs.to(v.dtype), v)
 
 
-def causal_attention(q, k, v, *, chunk: int, window: int = 0):
+def causal_attention(q, k, v, *, chunk: int, window: int = 0, shd=None):
     """Reference causal attention with GQA, looped over query chunks.
 
     q: (B, S, Hq, hd); k, v: (B, S, KVH, hd).  Returns (B, S, Hq, hd).
     Non-divisible S is zero-padded on the query side (outputs sliced off).
+
+    When KVH does not divide the model axis (``shd``), K/V are expanded to
+    MHA so the score tensors shard cleanly on the head dim, as in the
+    reference.
     """
     B, S, Hq, hd = q.shape
     KVH = k.shape[2]
+    if shd is not None:
+        if shd.seq_shard:
+            k, v = shd.kv_seq(k), shd.kv_seq(v)
+        elif KVH % shd.msize != 0 and Hq % shd.msize == 0 and Hq != KVH:
+            rep = Hq // KVH
+            k = torch.repeat_interleave(k, rep, dim=2)
+            v = torch.repeat_interleave(v, rep, dim=2)
+            KVH = Hq
+    if isinstance(q, DTensor):
+        out = on_head_shards(lambda *t: causal_attention(
+            *t, chunk=chunk, window=window), q, k, v)
+        if out is not None:
+            return out
     G = Hq // KVH
     chunk = min(chunk, S)
     Sp = -(-S // chunk) * chunk
-    qg = q.reshape(B, S, KVH, G, hd)
+    qg = reshape(q, B, S, KVH, G, hd)
     if Sp != S:
         qg = torch.nn.functional.pad(qg, (0, 0, 0, 0, 0, 0, 0, Sp - S))
-    outs = [_causal_chunk_attn(qg[:, i:i + chunk], k, v, i, window)
+    outs = [_causal_chunk_attn(qg[:, i:i + chunk], k, v, i, window, shd)
             for i in range(0, Sp, chunk)]
-    out = torch.cat(outs, dim=1).reshape(B, Sp, Hq, hd)
+    out = reshape(torch.cat(outs, dim=1), B, Sp, Hq, hd)
     return out[:, :S]
 
 
@@ -203,6 +258,10 @@ def bidir_attention(q, k, v, chunk: int):
     """Non-causal full attention, query-chunked (the reference's
     ``encdec.bidir_attention``).  q: (B, Sq, H, hd); k, v: (B, Sk, H, hd),
     Sk may differ from Sq (cross-attention).  Returns (B, Sq, H, hd)."""
+    if isinstance(q, DTensor):
+        out = on_head_shards(lambda *t: bidir_attention(*t, chunk), q, k, v)
+        if out is not None:
+            return out
     B, S, H, hd = q.shape
     chunk = min(chunk, S)
     outs = []
@@ -223,10 +282,20 @@ def decode_attention(q, k_cache, v_cache, kv_len, *, window: int = 0,
     ``kv_chunk`` > 0 loops over KV blocks with an online softmax
     (flash-style): score tensors never grow beyond one block.
     """
+    if isinstance(q, DTensor):  # on each device's rows and heads
+        try:
+            pl, mesh, local = head_shards(q, k_cache, v_cache)
+        except NotImplementedError:
+            pl = None
+        if pl is not None:
+            lens = local_as(kv_len, project(pl, {0: 0}), mesh)
+            out = decode_attention(*local, lens, window=window,
+                                   kv_chunk=kv_chunk)
+            return DTensor.from_local(out, mesh, pl, run_check=False)
     B, _, Hq, hd = q.shape
     S, KVH = k_cache.shape[1], k_cache.shape[2]
     G = Hq // KVH
-    qg = q.reshape(B, KVH, G, hd).float()
+    qg = reshape(q, B, KVH, G, hd).float()
     kv_len = kv_len.to(q.device)
     if kv_chunk and S > kv_chunk and S % kv_chunk == 0:
         m = torch.full((B, KVH, G), NEG_INF, dtype=torch.float32,
@@ -392,22 +461,53 @@ def cache_insert_layer(cache: dict, layer_idx: int, k_new, v_new, positions,
 
     cache entries: (L, B, S, KVH, hd) [+ scales]; k_new/v_new: (B, 1, KVH, hd);
     positions: (B,) absolute position of the new token.
+
+    A DTensor cache is written on each device's shard, in place, with the
+    new entries and positions placed as the shard's rows and heads are.
     """
     S = cache["k"].shape[2]
-    B = k_new.shape[0]
-    dev = cache["k"].device
+    for name, val in _kv_entries(cfg, k_new, v_new).items():
+        buf, pos = cache[name], positions
+        if isinstance(buf, DTensor):
+            pl, mesh = buf.placements, buf.device_mesh
+            if any(isinstance(p, Shard) and p.dim in (0, 2) for p in pl):
+                raise NotImplementedError(
+                    f"a cache sharded over its layers or slots ({pl})")
+            val = local_as(val, project(pl, {1: 0, 3: 2, 4: 3}), mesh)
+            pos = local_as(positions, project(pl, {1: 0}), mesh)
+            buf = buf.to_local()
+        _write_token(buf[layer_idx], val, pos, S, cfg)
+    return cache
+
+
+def write_state(buf, idx: tuple, val) -> None:
+    """``buf[idx] = val`` in place, ``idx`` indexing leading dims (a
+    recurrent state's slot).  A DTensor ``buf`` is written on each
+    device's shard, ``val`` placed as ``buf``'s remaining dims are."""
+    if isinstance(buf, DTensor):
+        n, pl = len(idx), buf.placements
+        if any(isinstance(p, Shard) and p.dim < n for p in pl):
+            raise NotImplementedError(f"a state sharded over its slots ({pl})")
+        val = local_as(val, project(pl, {d: d - n for d in range(n, buf.dim())}),
+                       buf.device_mesh)
+        buf = buf.to_local()
+    buf[idx] = val
+
+
+def _write_token(buf, val, positions, S: int, cfg: ModelConfig) -> None:
+    """buf (B, S, ...) <- val (B, 1, ...) at slot ``positions`` (B,) (mod S
+    under a window), in place; a write at or past S is dropped."""
+    B = val.shape[0]
+    dev = buf.device
     slots = positions.to(dev).long()
     if cfg.sliding_window:
         slots = slots % S
     keep = slots < S
     slots = torch.clamp(slots, max=S - 1)  # a dropped write rewrites itself
     rows = torch.arange(B, device=dev)
-    for name, val in _kv_entries(cfg, k_new, v_new).items():
-        buf = cache[name][layer_idx]
-        old = buf[rows, slots]
-        mask = keep.reshape((B,) + (1,) * (old.dim() - 1))
-        buf[rows, slots] = torch.where(mask, val[:, 0].to(buf.dtype), old)
-    return cache
+    old = buf[rows, slots]
+    mask = keep.reshape((B,) + (1,) * (old.dim() - 1))
+    buf[rows, slots] = torch.where(mask, val[:, 0].to(buf.dtype), old)
 
 
 def cache_layer_arrays(cache: dict, layer_idx: int, cfg: ModelConfig,

@@ -34,11 +34,19 @@ from typing import Optional
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers as L
 from repro_torch.models import transformer as T
 from repro_torch.models.layers import cast_once
+from repro_torch.models.sharding import (
+    ShardingCtx,
+    constrain,
+    linear,
+    on_batch_shards,
+    reshape,
+)
 
 # the weights cast to the compute dtype at use (the rest is read in fp32)
 MAMBA_CAST = ("w_in", "w_out")
@@ -161,7 +169,13 @@ def ssd_scan(x, Bmat, Cmat, dt, A, chunk: int, h0=None):
     """Chunked SSD.  x: (B, S, H, P); Bmat/Cmat: (B, S, N); dt: (B, S, H);
     A: (H,) < 0.  Returns y (B, S, H, P) and the final state (B, H, P, N),
     fp32.  S is padded up to a multiple of the chunk with dt = 0 (no state
-    update, unit decay: exact)."""
+    update, unit decay: exact).  DTensors run on each device's rows
+    (``sharding.on_batch_shards``)."""
+    if isinstance(x, DTensor):
+        rows = [x, Bmat, Cmat, dt] + ([] if h0 is None else [h0])
+        return on_batch_shards(
+            lambda *t: ssd_scan(*t[:4], t[-1], chunk,
+                                t[4] if len(t) == 6 else None), rows, [A])
     Bsz, S, H, P = x.shape
     N = Bmat.shape[-1]
     Q = min(chunk, S)
@@ -196,7 +210,8 @@ def ssd_scan(x, Bmat, Cmat, dt, A, chunk: int, h0=None):
     return torch.cat(ys, dim=1)[:, :S], h
 
 
-def mamba_forward(x, p, cfg: ModelConfig, conv_state=None, ssm_state=None):
+def mamba_forward(x, p, cfg: ModelConfig, conv_state=None, ssm_state=None,
+                  shd: Optional[ShardingCtx] = None):
     """One mamba layer with its residual: the whole sequence (prefill) when
     both states are None and S > 1, else one recurrent step from them.
     ``p``'s ``w_in``/``w_out`` in x's dtype (cast by the caller), the rest
@@ -204,12 +219,12 @@ def mamba_forward(x, p, cfg: ModelConfig, conv_state=None, ssm_state=None):
     d_inner, H, N, conv_ch, _ = mamba_dims(cfg)
     res = x
     xh = L.rms_norm(x, p["ln"], cfg.norm_eps)
-    proj = xh @ p["w_in"].to(xh.dtype)
+    proj = linear(xh, p["w_in"].to(xh.dtype))
     z, xBC, dt_raw = torch.split(proj, [d_inner, conv_ch, H], dim=-1)
     xBC, new_conv = _conv1d_causal(xBC, p["conv_w"], p["conv_b"], conv_state)
     xs, Bmat, Cmat = torch.split(xBC, [d_inner, N, N], dim=-1)
     Bsz, S = xs.shape[:2]
-    xs = xs.reshape(Bsz, S, H, cfg.ssm_head_dim)
+    xs = reshape(xs, Bsz, S, H, cfg.ssm_head_dim)
     dt = F.softplus(dt_raw.float() + p["dt_bias"])
     A = -torch.exp(p["A_log"])
     if ssm_state is None and S > 1:
@@ -224,11 +239,11 @@ def mamba_forward(x, p, cfg: ModelConfig, conv_state=None, ssm_state=None):
             "bhp,bn->bhpn", dx, Bmat[:, 0].float())
         y = torch.einsum("bn,bhpn->bhp", Cmat[:, 0].float(), h_final)[:, None]
     y = y + xs.float() * p["D_skip"][:, None]
-    y = y.reshape(Bsz, S, d_inner)
+    y = reshape(y, Bsz, S, d_inner)
     y = y * F.silu(z.float())
     y = L.rms_norm(y.to(x.dtype), p["ln_gate"], cfg.norm_eps)
-    out = y @ p["w_out"].to(x.dtype)
-    return res + out, (new_conv, h_final)
+    out = linear(y, p["w_out"].to(x.dtype))
+    return constrain(shd, "residual", res + out), (new_conv, h_final)
 
 
 # ---------------------------------------------------------------------------
@@ -240,7 +255,8 @@ def shared_attn_block(x, h0, p, cfg: ModelConfig, positions, *,
                       attn_impl: str = "auto", cache=None,
                       attn: Optional[T.DecodeAttention] = None,
                       layer_idx=None,
-                      compute_dtype: torch.dtype = L.COMPUTE_DTYPE):
+                      compute_dtype: torch.dtype = L.COMPUTE_DTYPE,
+                      shd: Optional[ShardingCtx] = None):
     """The shared transformer block on concat(x, h0) (h0: the initial
     embeddings), its weights in x's dtype and its norms fp32.  Prefill
     (``cache`` None) returns (out, (k, v)) of the whole sequence; decode
@@ -248,22 +264,23 @@ def shared_attn_block(x, h0, p, cfg: ModelConfig, positions, *,
     through the step's ``attn`` plan and returns (out, cache)."""
     cat = L.rms_norm(torch.cat([x, h0], dim=-1), p["ln_concat"],
                      cfg.norm_eps)
-    h = cat @ p["w_concat"]
+    h = linear(cat, p["w_concat"])
     hh = L.rms_norm(h, p["ln1"], cfg.norm_eps)
-    q, k, v = T._qkv(hh, p, cfg)
+    q, k, v = T._qkv(hh, p, cfg, shd)
     q = L.apply_rope(q, positions, cfg.rope_theta)
     k = L.apply_rope(k, positions, cfg.rope_theta)
     if cache is None:
-        o = T.prefill_attention(q, k, v, cfg, attn_impl)
+        o = T.prefill_attention(q, k, v, cfg, attn_impl, shd=shd)
         new_cache = (k, v)
     else:
         o = attn(cache, layer_idx, q, k, v, compute_dtype)
         new_cache = cache
     h = h + T._out_proj(o.to(x.dtype), p["wo"])
     hh = L.rms_norm(h, p["ln2"], cfg.norm_eps)
-    g = F.silu(hh @ p["w_gate"])
-    ff = (g * (hh @ p["w_up"])) @ p["w_down"]
-    return x + h + ff, new_cache
+    g = F.silu(linear(hh, p["w_gate"]))
+    ff = linear(constrain(shd, "ffn", g * linear(hh, p["w_up"])),
+                p["w_down"])
+    return constrain(shd, "residual", x + h + ff), new_cache
 
 
 # ---------------------------------------------------------------------------
@@ -283,17 +300,18 @@ def _mamba_params(params: dict, i: int, j: int, dtype: torch.dtype) -> dict:
             for k, v in params["mamba"].items()}
 
 
-def _train_mamba(x, p, cfg: ModelConfig) -> torch.Tensor:
+def _train_mamba(x, p, cfg: ModelConfig,
+                 shd: Optional[ShardingCtx] = None) -> torch.Tensor:
     """One mamba layer of the train loss: its weights cast at use, its
     states dropped."""
     p = {k: v.to(x.dtype) if k in MAMBA_CAST else v for k, v in p.items()}
-    return mamba_forward(x, p, cfg)[0]
+    return mamba_forward(x, p, cfg, shd=shd)[0]
 
 
 def _zamba_trunk(params: dict, cfg: ModelConfig, h, positions, *,
                  attn_impl: str = "auto",
                  compute_dtype: torch.dtype = L.COMPUTE_DTYPE,
-                 collect: bool = True):
+                 collect: bool = True, shd: Optional[ShardingCtx] = None):
     """The full-sequence trunk.  Returns (h, the shared block's K/V
     ``{"k", "v"}`` stacked (n_super, B, S, KVH, hd), the mamba states
     (conv (n_super, every, B, W - 1, C), ssm (n_super, every, B, H, P,
@@ -310,48 +328,63 @@ def _zamba_trunk(params: dict, cfg: ModelConfig, h, positions, *,
         for i in range(n_super):
             T.PREFILL_ROUTES["plain"] += 1
             h, _ = shared_attn_block(h, h0, shared, cfg, positions,
-                                     attn_impl=T.TRAIN)
+                                     attn_impl=T.TRAIN, shd=shd)
             for p in layers[i * every:(i + 1) * every]:
-                h = T.checkpointed(_train_mamba, h, p, cfg)
+                h = T.checkpointed(_train_mamba, h, p, cfg, shd)
         return h, None, None
     kv = conv = ssm = None
     for i in range(n_super):
         h, (k, v) = shared_attn_block(h, h0, shared, cfg, positions,
-                                      attn_impl=attn_impl)
+                                      attn_impl=attn_impl, shd=shd)
         kv = T._cache_layer(kv, i, n_super, {"k": k, "v": v})
+        states = []
         for j in range(every):
-            h, (cst, sst) = mamba_forward(
-                h, _mamba_params(params, i, j, compute_dtype), cfg)
-            if conv is None:
-                conv = cst.new_empty((n_super, every) + cst.shape)
-                ssm = sst.new_empty((n_super, every) + sst.shape)
-            conv[i, j] = cst
-            ssm[i, j] = sst
-    return h, kv, (conv, ssm)
+            h, st = mamba_forward(
+                h, _mamba_params(params, i, j, compute_dtype), cfg, shd=shd)
+            states.append(st)
+        conv = T._cache_layer(conv, i, n_super, {
+            "conv": _stack_states([c for c, _ in states])})
+        ssm = T._cache_layer(ssm, i, n_super, {
+            "ssm": _stack_states([s for _, s in states])})
+    return (h, T.stack_cache(kv), (T.stack_cache(conv)["conv"],
+                                   T.stack_cache(ssm)["ssm"]))
+
+
+def _stack_states(states: list):
+    """One application's ``every`` layer states stacked (DTensors by
+    ``torch.stack``)."""
+    if isinstance(states[0], DTensor):
+        return torch.stack(states)
+    out = states[0].new_empty((len(states),) + states[0].shape)
+    for j, st in enumerate(states):
+        out[j] = st
+    return out
 
 
 def zamba_train_loss(params: dict, cfg: ModelConfig, batch: dict, *,
                      vocab_chunk: int = 0, attn_impl: str = "auto",
-                     compute_dtype: torch.dtype = L.COMPUTE_DTYPE
-                     ) -> torch.Tensor:
+                     compute_dtype: torch.dtype = L.COMPUTE_DTYPE,
+                     shd: Optional[ShardingCtx] = None) -> torch.Tensor:
     """The next-token loss of ``tokens`` against ``labels`` (B, S), -1
     masked: the trunk without its states (``_zamba_trunk(collect=False)``),
     then the final norm and ``transformer.cross_entropy``."""
     T.train_attention_impl(attn_impl)
     tokens = batch["tokens"]
     dev = params["embed"].device
-    h = params["embed"][tokens.long()].to(compute_dtype)
+    h = constrain(shd, "residual", T.embed(params, tokens, compute_dtype))
     positions = T._positions(cfg, batch, *tokens.shape, dev)
     h, _, _ = _zamba_trunk(params, cfg, h, positions,
-                           compute_dtype=compute_dtype, collect=False)
+                           compute_dtype=compute_dtype, collect=False,
+                           shd=shd)
     h = L.rms_norm(h, params["final_ln"], cfg.norm_eps)
     return T.cross_entropy(h, params["lm_head"], batch["labels"],
-                           vocab_chunk)
+                           vocab_chunk, shd)
 
 
 def zamba_prefill(params: dict, cfg: ModelConfig, batch: dict, *,
                   max_len=None, attn_impl: str = "auto",
-                  compute_dtype: torch.dtype = L.COMPUTE_DTYPE):
+                  compute_dtype: torch.dtype = L.COMPUTE_DTYPE,
+                  shd: Optional[ShardingCtx] = None):
     """Returns (last-prompt-position logits (B, V), cache, prompt_lens
     (B,)).  The cache: ``attn`` (the shared block's K/V per application,
     (n_super, B, W, KVH, hd): padded to ``max_len``, or the last W tokens
@@ -360,23 +393,25 @@ def zamba_prefill(params: dict, cfg: ModelConfig, batch: dict, *,
     tokens = batch["tokens"]
     B, S = tokens.shape
     dev = params["embed"].device
-    h = T._embed_tokens(params, cfg, batch, compute_dtype)
+    h = T._embed_tokens(params, cfg, batch, compute_dtype, shd)
     positions = T._positions(cfg, batch, B, S, dev)
     prompt_lens = batch.get("prompt_lens")
     if prompt_lens is None:
         prompt_lens = torch.full((B,), S, dtype=torch.int32, device=dev)
     h, kv, (conv, ssm) = _zamba_trunk(params, cfg, h, positions,
                                       attn_impl=attn_impl,
-                                      compute_dtype=compute_dtype)
+                                      compute_dtype=compute_dtype, shd=shd)
     attn = L.finalize_prefill_cache(kv["k"], kv["v"], cfg, max_len,
                                     seq_axis=2)
     cache = {"attn": attn, "conv": conv, "ssm": ssm}
-    return T._last_logits(params, cfg, h, prompt_lens), cache, prompt_lens
+    return (T._last_logits(params, cfg, h, prompt_lens, shd), cache,
+            prompt_lens)
 
 
 def zamba_decode_step(params: dict, cfg: ModelConfig, cache: dict,
                       batch: dict, *, attn_impl: str = "auto",
-                      compute_dtype: torch.dtype = L.COMPUTE_DTYPE):
+                      compute_dtype: torch.dtype = L.COMPUTE_DTYPE,
+                      shd: Optional[ShardingCtx] = None):
     """batch: ``tokens`` (B, 1), ``kv_len`` (B,).  Returns (logits (B, V),
     cache), the cache updated in place: one K/V write per application of
     the shared block (one ``DecodeAttention`` plan a step over
@@ -384,7 +419,7 @@ def zamba_decode_step(params: dict, cfg: ModelConfig, cache: dict,
     tokens = batch["tokens"]
     B = tokens.shape[0]
     dev = params["embed"].device
-    h = params["embed"][tokens.long()].to(compute_dtype)
+    h = T.embed(params, tokens, compute_dtype)
     h0 = h
     positions = T._positions(cfg, batch, B, 1, dev, offset=batch["kv_len"])
     attn = T.DecodeAttention.plan(cfg, h, attn_impl, cache["attn"],
@@ -394,11 +429,12 @@ def zamba_decode_step(params: dict, cfg: ModelConfig, cache: dict,
     for i in range(n_super):
         h, _ = shared_attn_block(h, h0, shared, cfg, positions,
                                  cache=cache["attn"], attn=attn, layer_idx=i,
-                                 compute_dtype=compute_dtype)
+                                 compute_dtype=compute_dtype, shd=shd)
         for j in range(every):
             h, (cst, sst) = mamba_forward(
                 h, _mamba_params(params, i, j, compute_dtype), cfg,
-                conv_state=cache["conv"][i, j], ssm_state=cache["ssm"][i, j])
-            cache["conv"][i, j] = cst
-            cache["ssm"][i, j] = sst
-    return T._logits(params, cfg, h[:, 0]), cache
+                conv_state=cache["conv"][i, j], ssm_state=cache["ssm"][i, j],
+                shd=shd)
+            L.write_state(cache["conv"], (i, j), cst)
+            L.write_state(cache["ssm"], (i, j), sst)
+    return T._logits(params, cfg, h[:, 0], shd), cache

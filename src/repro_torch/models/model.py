@@ -5,11 +5,12 @@ encoder-decoder (seamless-m4t).
 
 ``build_model(cfg)`` returns a ``Model`` with:
   - init(gen, device=None) -> params (fp32, drawn from a torch generator)
-  - train_loss(params, batch, vocab_chunk=0) -> 0-d fp32 loss, which
-    autograd differentiates
-  - prefill(params, batch, max_len=None) -> (last_logits, cache, kv_len)
-  - decode_step(params, cache, batch) -> (logits, cache), the cache
-    updated in place
+  - train_loss(params, batch, shd=None, vocab_chunk=0) -> 0-d fp32 loss,
+    which autograd differentiates
+  - prefill(params, batch, shd=None, max_len=None) -> (last_logits, cache,
+    kv_len)
+  - decode_step(params, cache, batch, shd=None) -> (logits, cache), the
+    cache updated in place
   - param_shapes() / batch_specs(shape) / cache_specs(shape): tensors on
     the ``meta`` device (shapes and dtypes; nothing is allocated).
 
@@ -17,8 +18,12 @@ The entry points take ``attn_impl`` (``models.transformer``): on a CUDA
 tensor, prefill runs the flash-attention kernel and decode the
 paged-attention kernel (the SSM family has no attention and runs no
 kernel).  The train loss runs the reference's plain attention on every
-device and refuses a kernel route (no kernel has a backward).  The
-reference's sharding argument is not taken (the mesh code comes last).
+device and refuses a kernel route (no kernel has a backward).
+
+``shd`` is the reference's sharding context (``models.sharding.ShardingCtx``):
+on DTensor inputs (``launch.steps.build_cell``) each activation is placed
+at the reference's call sites; with ``shd=None`` or plain tensors every
+constraint is the identity.
 
 ``params_from_numpy`` and ``cache_from_numpy`` carry the reference's
 trees (as ``jax.device_get`` returns them) across, checked against this
@@ -46,22 +51,26 @@ class Model:
     def init(self, gen: torch.Generator, device=None) -> dict:
         return self._fns["init"](self.cfg, gen, device)
 
-    def train_loss(self, params, batch, vocab_chunk: int = 0, *,
+    def train_loss(self, params, batch, shd=None, vocab_chunk: int = 0, *,
                    attn_impl: str = "auto"):
         return self._fns["train_loss"](params, self.cfg, batch,
                                        vocab_chunk=vocab_chunk,
                                        attn_impl=attn_impl,
-                                       compute_dtype=self.compute_dtype)
+                                       compute_dtype=self.compute_dtype,
+                                       shd=shd)
 
-    def prefill(self, params, batch, max_len=None, *, attn_impl: str = "auto"):
+    def prefill(self, params, batch, shd=None, max_len=None, *,
+                attn_impl: str = "auto"):
         return self._fns["prefill"](params, self.cfg, batch, max_len=max_len,
                                     attn_impl=attn_impl,
-                                    compute_dtype=self.compute_dtype)
+                                    compute_dtype=self.compute_dtype, shd=shd)
 
-    def decode_step(self, params, cache, batch, *, attn_impl: str = "auto"):
+    def decode_step(self, params, cache, batch, shd=None, *,
+                    attn_impl: str = "auto"):
         return self._fns["decode_step"](params, self.cfg, cache, batch,
                                         attn_impl=attn_impl,
-                                        compute_dtype=self.compute_dtype)
+                                        compute_dtype=self.compute_dtype,
+                                        shd=shd)
 
     # ------------------------------------------------------------------
     # shape stand-ins on the meta device (never allocate)

@@ -36,6 +36,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers as L
 from repro_torch.models import transformer as T
 from repro_torch.models.moe_dispatch import moe_dispatch_mlp
+from repro_torch.models.sharding import ShardingCtx, constrain, linear
 
 # the routing of ``_moe_mlp``'s calls while a list is set here (None: not
 # recorded), one dict per call in call order: ``margin`` (B, S), the gap
@@ -126,7 +127,7 @@ def init_moe(cfg: ModelConfig, gen: torch.Generator, device=None) -> dict:
 
 
 def _router_logits(h, router) -> torch.Tensor:
-    return h.float() @ router.float()
+    return linear(h.float(), router.float())
 
 
 def _log_routing(logits: torch.Tensor, k: int) -> None:
@@ -144,14 +145,16 @@ def router_weights(h, router, cfg: ModelConfig) -> torch.Tensor:
     if margin_log is not None:
         _log_routing(logits, cfg.num_experts_per_tok)
     top, idx = torch.topk(logits, cfg.num_experts_per_tok, dim=-1)
-    return torch.zeros_like(logits).scatter_(-1, idx,
-                                             torch.softmax(top, dim=-1))
+    return torch.zeros_like(logits).scatter(-1, idx,
+                                            torch.softmax(top, dim=-1))
 
 
-def _expert(h, wg, wu, wd):
-    """One expert's SwiGLU on h (..., D) in h's dtype."""
-    g = torch.nn.functional.silu(h @ wg.to(h.dtype))
-    return (g * (h @ wu.to(h.dtype))) @ wd.to(h.dtype)
+def _expert(h, wg, wu, wd, shd: Optional[ShardingCtx] = None):
+    """One expert's SwiGLU on h (..., D) in h's dtype; ``shd`` places its
+    (B, S, F) hidden as the reference's scan does."""
+    g = torch.nn.functional.silu(linear(h, wg.to(h.dtype)))
+    return linear(constrain(shd, "ffn", g * linear(h, wu.to(h.dtype))),
+                  wd.to(h.dtype))
 
 
 def _decode_gather(h, p, cfg: ModelConfig) -> torch.Tensor:
@@ -176,30 +179,33 @@ def _decode_gather(h, p, cfg: ModelConfig) -> torch.Tensor:
     return torch.einsum("bk,bkd->bd", w.to(y.dtype), y)[:, None]
 
 
-def _moe_mlp(x, p, cfg: ModelConfig) -> torch.Tensor:
+def _moe_mlp(x, p, cfg: ModelConfig,
+             shd: Optional[ShardingCtx] = None) -> torch.Tensor:
     """The MoE feed-forward sublayer with its residual; the route follows
     the config (module docstring)."""
     h = L.rms_norm(x, p["ln2"], cfg.norm_eps)
     if cfg.moe_decode_gather and h.shape[1] == 1:
-        return x + _decode_gather(h, p, cfg)
+        return constrain(shd, "residual", x + _decode_gather(h, p, cfg))
     combine = router_weights(h, p["router"], cfg)  # (B, S, E)
     if cfg.moe_impl == "dispatch":
         out = moe_dispatch_mlp(h, combine, p, cfg)
-        return x + out.to(x.dtype)
+        return constrain(shd, "residual", x + out.to(x.dtype))
     acc = torch.zeros(x.shape, dtype=torch.float32, device=x.device)
     experts = zip(*(p[w].unbind(0) for w in ("e_gate", "e_up", "e_down")))
     # the reference's scan, in its order (``unbind``: under autograd one
     # gradient of the stacked experts, not one per expert read)
     for e, (wg, wu, wd) in enumerate(experts):
-        y = _expert(h, wg, wu, wd)
+        y = _expert(h, wg, wu, wd, shd)
         acc = acc + combine[..., e, None] * y.float()
-    return x + acc.to(x.dtype)
+    return constrain(shd, "residual", x + acc.to(x.dtype))
 
 
 def _moe_layer_fwd(x, p, cfg: ModelConfig, positions,
-                   attn_impl: str = "auto") -> torch.Tensor:
-    x = T._attn_layer_full(x, p, cfg, positions, attn_impl=attn_impl)
-    return _moe_mlp(x, p, cfg)
+                   attn_impl: str = "auto",
+                   shd: Optional[ShardingCtx] = None) -> torch.Tensor:
+    x = T._attn_layer_full(x, p, cfg, positions, attn_impl=attn_impl,
+                           shd=shd)
+    return _moe_mlp(x, p, cfg, shd)
 
 
 # ---------------------------------------------------------------------------
@@ -209,8 +215,8 @@ def _moe_layer_fwd(x, p, cfg: ModelConfig, positions,
 
 def moe_train_loss(params: dict, cfg: ModelConfig, batch: dict, *,
                    vocab_chunk: int = 0, attn_impl: str = "auto",
-                   compute_dtype: torch.dtype = L.COMPUTE_DTYPE
-                   ) -> torch.Tensor:
+                   compute_dtype: torch.dtype = L.COMPUTE_DTYPE,
+                   shd: Optional[ShardingCtx] = None) -> torch.Tensor:
     """The next-token loss, as ``transformer.dense_train_loss`` computes
     it (checkpointed layers, the reference's plain attention), with the
     experts in place of the MLP on the config's route (the dense expert
@@ -218,27 +224,29 @@ def moe_train_loss(params: dict, cfg: ModelConfig, batch: dict, *,
     return T.decoder_train_loss(params, cfg, batch, _moe_mlp,
                                 vocab_chunk=vocab_chunk, attn_impl=attn_impl,
                                 compute_dtype=compute_dtype,
-                                fp32=FP32_PARAMS)
+                                fp32=FP32_PARAMS, shd=shd)
 
 
 def moe_prefill(params: dict, cfg: ModelConfig, batch: dict, *,
                 max_len=None, attn_impl: str = "auto",
-                compute_dtype: torch.dtype = L.COMPUTE_DTYPE):
+                compute_dtype: torch.dtype = L.COMPUTE_DTYPE,
+                shd: Optional[ShardingCtx] = None):
     """Returns (last-prompt-position logits (B, V), cache, prompt_lens
     (B,)), as ``transformer.dense_prefill`` does, with the experts in place
     of the MLP."""
     return T.decoder_prefill(params, cfg, batch, _moe_mlp, max_len=max_len,
                              attn_impl=attn_impl, compute_dtype=compute_dtype,
-                             fp32=FP32_PARAMS)
+                             fp32=FP32_PARAMS, shd=shd)
 
 
 def moe_decode_step(params: dict, cfg: ModelConfig, cache: dict,
                     batch: dict, *, attn_impl: str = "auto",
-                    compute_dtype: torch.dtype = L.COMPUTE_DTYPE):
+                    compute_dtype: torch.dtype = L.COMPUTE_DTYPE,
+                    shd: Optional[ShardingCtx] = None):
     """batch: ``tokens`` (B, 1), ``kv_len`` (B,).  Returns (logits (B, V),
     cache), the cache updated in place, as ``transformer.dense_decode_step``
     does."""
     return T.decoder_decode_step(params, cfg, cache, batch, _moe_mlp,
                                  attn_impl=attn_impl,
                                  compute_dtype=compute_dtype,
-                                 fp32=FP32_PARAMS)
+                                 fp32=FP32_PARAMS, shd=shd)

@@ -6,8 +6,9 @@ row's tokens go to per-expert capacity slots, ``C = max(1, round(S * k *
 capacity_factor / E))`` (Python's ``round``), in token order (a cumulative
 sum over the sequence); a token past its expert's capacity is dropped and
 that expert contributes zero to it.  ``capacity_factor >= E / k`` makes
-dispatch lossless.  The expert-parallel sharding of the reference waits
-for the mesh code (ROADMAP.md §1).
+dispatch lossless.  The reference's expert-parallel ``moe_impl="ep"`` is a
+sharding rule only (``models.sharding.moe_layer_specs``,
+``launch.shardings.leaf_spec``): its compute stays the dense expert scan.
 """
 from __future__ import annotations
 

@@ -39,6 +39,7 @@ import dataclasses
 from typing import Callable, Optional
 
 import torch
+from torch.distributed.tensor import DTensor
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
@@ -51,6 +52,16 @@ from repro_torch.kernels.paged_attention.ops import (
 )
 from repro_torch.models import layers as L
 from repro_torch.models.layers import cast_once
+from repro_torch.models.sharding import (
+    ShardingCtx,
+    constrain,
+    head_shards,
+    linear,
+    local_as,
+    project,
+    replicate_partial,
+    reshape,
+)
 
 ATTN_IMPLS = ("auto", "ref", "cuda")
 
@@ -129,21 +140,23 @@ def init_dense(cfg: ModelConfig, gen: torch.Generator, device=None) -> dict:
 # ---------------------------------------------------------------------------
 
 
-def _mlp_layer(x: torch.Tensor, p: dict, cfg: ModelConfig) -> torch.Tensor:
+def _mlp_layer(x: torch.Tensor, p: dict, cfg: ModelConfig,
+               shd: Optional[ShardingCtx] = None) -> torch.Tensor:
     """SwiGLU MLP sublayer with its residual: x + W_down(silu(W_g h) * W_u h),
     h = rms_norm(x).  Weights are cast to the activation dtype at use (a
     no-op when the caller hands in weights already cast)."""
     h = L.rms_norm(x, p["ln2"], cfg.norm_eps)
-    g = torch.nn.functional.silu(h @ p["w_gate"].to(h.dtype))
-    u = h @ p["w_up"].to(h.dtype)
-    o = (g * u) @ p["w_down"].to(h.dtype)
-    return x + o
+    g = torch.nn.functional.silu(linear(h, p["w_gate"].to(h.dtype)))
+    u = linear(h, p["w_up"].to(h.dtype))
+    o = linear(constrain(shd, "ffn", g * u), p["w_down"].to(h.dtype))
+    return constrain(shd, "residual", x + o)
 
 
 def _dense_layer_fwd(x, p, cfg: ModelConfig, positions,
-                     attn_impl: str = "auto") -> torch.Tensor:
-    x = _attn_layer_full(x, p, cfg, positions, attn_impl=attn_impl)
-    return _mlp_layer(x, p, cfg)
+                     attn_impl: str = "auto",
+                     shd: Optional[ShardingCtx] = None) -> torch.Tensor:
+    x = _attn_layer_full(x, p, cfg, positions, attn_impl=attn_impl, shd=shd)
+    return _mlp_layer(x, p, cfg, shd)
 
 
 # ---------------------------------------------------------------------------
@@ -184,12 +197,15 @@ def prefill_route(cfg: ModelConfig, q, attn_impl: str) -> str:
 
 
 def prefill_attention(q, k, v, cfg: ModelConfig, attn_impl: str, *,
-                      causal: bool = True):
+                      causal: bool = True,
+                      shd: Optional[ShardingCtx] = None):
     """Prefill self-attention over (B, S, H, hd) tensors: the flash kernel
     (``cuda``) or its plain version (``ref``) on transposed views, or the
-    reference's query-chunked plain code (``auto`` on a CPU tensor, and
-    ``TRAIN`` on any device): ``layers.causal_attention``, or
-    ``layers.bidir_attention`` for the encoder's non-causal attention."""
+    reference's query-chunked plain code (``auto`` on a CPU or ``meta``
+    tensor, and ``TRAIN`` on any device): ``layers.causal_attention``, or
+    ``layers.bidir_attention`` for the encoder's non-causal attention.
+    DTensors go through a kernel route on each device's shard
+    (``head_shards``) and come back as a DTensor of q's placements."""
     if attn_impl == TRAIN:  # the train loss counts its layers' calls
         route = "plain"
     else:
@@ -199,11 +215,17 @@ def prefill_attention(q, k, v, cfg: ModelConfig, attn_impl: str, *,
         if not causal:
             return L.bidir_attention(q, k, v, cfg.attn_chunk)
         return L.causal_attention(q, k, v, chunk=cfg.attn_chunk,
-                                  window=cfg.sliding_window)
+                                  window=cfg.sliding_window, shd=shd)
+    dt = isinstance(q, DTensor)
+    if dt:
+        pl, mesh, (q, k, v) = head_shards(q, k, v)
     o = flash_attention(q.transpose(1, 2), k.transpose(1, 2),
                         v.transpose(1, 2), causal=causal,
                         impl="cuda" if route == "flash" else "ref")
-    return o.transpose(1, 2)
+    o = o.transpose(1, 2)
+    if dt:
+        return DTensor.from_local(o, mesh, pl, run_check=False)
+    return o
 
 
 def decode_route(cfg: ModelConfig, x, attn_impl: str, *,
@@ -247,16 +269,25 @@ def _layer_params(params: dict, i: int, dtype: torch.dtype,
             for k, v in params[key].items()}
 
 
+def embed(params: dict, tokens, dtype: torch.dtype) -> torch.Tensor:
+    """The rows of ``embed`` for ``tokens``, in ``dtype`` (an embedding
+    lookup: on a vocab-split DTensor, a masked partial sum, reduced
+    here)."""
+    return replicate_partial(torch.nn.functional.embedding(
+        tokens.long(), params["embed"])).to(dtype)
+
+
 def _embed_tokens(params: dict, cfg: ModelConfig, batch: dict,
-                  dtype: torch.dtype) -> torch.Tensor:
-    tokens = batch["tokens"]
-    h = params["embed"][tokens.long()].to(dtype)
+                  dtype: torch.dtype,
+                  shd: Optional[ShardingCtx] = None) -> torch.Tensor:
+    h = embed(params, batch["tokens"], dtype)
     if cfg.num_visual_tokens and "visual_embeds" in batch:
         vis = batch["visual_embeds"].to(device=h.device, dtype=dtype)
         # after BOS; the start clamps as dynamic_update_slice's does
         start = max(0, min(1, h.shape[1] - vis.shape[1]))
-        h[:, start:start + vis.shape[1]] = vis
-    return h
+        h = torch.cat([h[:, :start], vis, h[:, start + vis.shape[1]:]],
+                      dim=1)
+    return constrain(shd, "residual", h)
 
 
 def _positions(cfg: ModelConfig, batch: dict, B: int, S: int, device,
@@ -275,42 +306,48 @@ def _positions(cfg: ModelConfig, batch: dict, B: int, S: int, device,
     return base
 
 
-def _qkv(x, p, cfg: ModelConfig):
+def _qkv(x, p, cfg: ModelConfig, shd: Optional[ShardingCtx] = None):
     B, S, D = x.shape
-    q, k, v = ((x @ p[w].reshape(D, -1)).reshape(B, S, -1,
-                                                  cfg.resolved_head_dim)
+    q, k, v = (reshape(linear(x, reshape(p[w], D, -1)), B, S, -1,
+                       cfg.resolved_head_dim)
                for w in ("wq", "wk", "wv"))
     if "bq" in p:
         q = q + p["bq"]
         k = k + p["bk"]
         v = v + p["bv"]
-    return q, k, v
+    return constrain(shd, "heads", q), k, v
 
 
 def _out_proj(o, wo):
     """o (B, S, H, hd) @ wo (H, hd, D) -> (B, S, D)."""
-    return o.reshape(*o.shape[:-2], -1) @ wo.reshape(-1, wo.shape[-1])
+    return linear(reshape(o, *o.shape[:-2], -1), reshape(wo, -1, wo.shape[-1]))
 
 
 def _attn_layer_full(x, p, cfg: ModelConfig, positions, *,
                      attn_impl: str = "auto", return_kv: bool = False,
-                     causal: bool = True):
+                     causal: bool = True,
+                     shd: Optional[ShardingCtx] = None):
     """Full-sequence self-attention sublayer with its residual (prefill;
-    ``causal=False``: the encoder-decoder's encoder)."""
+    ``causal=False``: the encoder-decoder's encoder, whose reference
+    places no attention output)."""
     h = L.rms_norm(x, p["ln1"], cfg.norm_eps)
-    q, k, v = _qkv(h, p, cfg)
+    q, k, v = _qkv(h, p, cfg, shd)
     q = L.apply_rope(q, positions, cfg.rope_theta, cfg.mrope_sections)
     k = L.apply_rope(k, positions, cfg.rope_theta, cfg.mrope_sections)
-    o = prefill_attention(q, k, v, cfg, attn_impl, causal=causal)
-    x = x + _out_proj(o, p["wo"])
+    o = prefill_attention(q, k, v, cfg, attn_impl, causal=causal, shd=shd)
+    if causal:
+        o = constrain(shd, "heads", o)
+    x = constrain(shd, "residual", x + _out_proj(o, p["wo"]))
     if return_kv:
         return x, (k, v)
     return x
 
 
-def _logits(params: dict, cfg: ModelConfig, h: torch.Tensor) -> torch.Tensor:
+def _logits(params: dict, cfg: ModelConfig, h: torch.Tensor,
+            shd: Optional[ShardingCtx] = None) -> torch.Tensor:
     h = L.rms_norm(h, params["final_ln"], cfg.norm_eps)
-    return h @ cast_once(params["lm_head"], h.dtype)
+    return constrain(shd, "logits",
+                     linear(h, cast_once(params["lm_head"], h.dtype)))
 
 
 # ---------------------------------------------------------------------------
@@ -357,13 +394,15 @@ def checkpointed(fn: Callable, *args):
 
 
 def _train_layer(x, p, cfg: ModelConfig, positions, mlp: Callable,
-                 fp32: tuple) -> torch.Tensor:
+                 fp32: tuple, shd: Optional[ShardingCtx] = None
+                 ) -> torch.Tensor:
     p = cast_at_use(p, x.dtype, fp32)
-    x = _attn_layer_full(x, p, cfg, positions, attn_impl=TRAIN)
-    return mlp(x, p, cfg)
+    x = _attn_layer_full(x, p, cfg, positions, attn_impl=TRAIN, shd=shd)
+    return mlp(x, p, cfg, shd)
 
 
-def cross_entropy(h, lm_head, labels, vocab_chunk: int = 0) -> torch.Tensor:
+def cross_entropy(h, lm_head, labels, vocab_chunk: int = 0,
+                  shd: Optional[ShardingCtx] = None) -> torch.Tensor:
     """The mean next-token loss from fp32 logits.  h: (B, S, D) after the
     final norm; labels: (B, S), -1 masked; divided by max(#unmasked, 1).
 
@@ -376,9 +415,11 @@ def cross_entropy(h, lm_head, labels, vocab_chunk: int = 0) -> torch.Tensor:
     V = lm_head.shape[-1]
     w = lm_head.to(h.dtype)
     if not vocab_chunk or V % vocab_chunk:
-        logits = (h @ w).float()
+        logits = constrain(shd, "logits", linear(h, w)).float()
         lse = torch.logsumexp(logits, dim=-1)
-        ll = logits.gather(-1, safe[..., None])[..., 0]
+        # a gather over a vocab-sharded DTensor is a masked partial sum:
+        # reduced while it still has the index's shape
+        ll = replicate_partial(logits.gather(-1, safe[..., None]))[..., 0]
     else:
         c = vocab_chunk
         m = torch.full(labels.shape, L.NEG_INF, dtype=torch.float32,
@@ -386,12 +427,13 @@ def cross_entropy(h, lm_head, labels, vocab_chunk: int = 0) -> torch.Tensor:
         s = torch.zeros(labels.shape, dtype=torch.float32, device=h.device)
         gold = torch.zeros_like(s)
         for i in range(V // c):
-            lg = (h @ w[:, i * c:(i + 1) * c]).float()
+            lg = linear(h, w[:, i * c:(i + 1) * c]).float()
             nm = torch.maximum(m, lg.amax(dim=-1))
             s = s * torch.exp(m - nm) + torch.exp(lg - nm[..., None]).sum(-1)
             loc = safe - i * c
             hit = (loc >= 0) & (loc < c)
-            g = lg.gather(-1, torch.clamp(loc, 0, c - 1)[..., None])[..., 0]
+            g = replicate_partial(
+                lg.gather(-1, torch.clamp(loc, 0, c - 1)[..., None]))[..., 0]
             gold = torch.where(hit, g, gold)
             m = nm
         lse, ll = m + torch.log(s), gold
@@ -403,7 +445,8 @@ def decoder_train_loss(params: dict, cfg: ModelConfig, batch: dict,
                        mlp: Callable, *, vocab_chunk: int = 0,
                        attn_impl: str = "auto",
                        compute_dtype: torch.dtype = L.COMPUTE_DTYPE,
-                       fp32: tuple = NORMS) -> torch.Tensor:
+                       fp32: tuple = NORMS,
+                       shd: Optional[ShardingCtx] = None) -> torch.Tensor:
     """The decoder-only train loss with the feed-forward sublayer ``mlp``
     and the ``fp32`` layer parameters as in ``decoder_prefill``; see
     ``dense_train_loss``."""
@@ -411,19 +454,20 @@ def decoder_train_loss(params: dict, cfg: ModelConfig, batch: dict,
     tokens = batch["tokens"]
     B, S = tokens.shape
     dev = params["embed"].device
-    h = _embed_tokens(params, cfg, batch, compute_dtype)
+    h = _embed_tokens(params, cfg, batch, compute_dtype, shd)
     positions = _positions(cfg, batch, B, S, dev)
     for p in unstack(params["layers"]):
         PREFILL_ROUTES["plain"] += 1
-        h = checkpointed(_train_layer, h, p, cfg, positions, mlp, fp32)
+        h = checkpointed(_train_layer, h, p, cfg, positions, mlp, fp32, shd)
     h = L.rms_norm(h, params["final_ln"], cfg.norm_eps)
-    return cross_entropy(h, params["lm_head"], batch["labels"], vocab_chunk)
+    return cross_entropy(h, params["lm_head"], batch["labels"], vocab_chunk,
+                         shd)
 
 
 def dense_train_loss(params: dict, cfg: ModelConfig, batch: dict, *,
                      vocab_chunk: int = 0, attn_impl: str = "auto",
-                     compute_dtype: torch.dtype = L.COMPUTE_DTYPE
-                     ) -> torch.Tensor:
+                     compute_dtype: torch.dtype = L.COMPUTE_DTYPE,
+                     shd: Optional[ShardingCtx] = None) -> torch.Tensor:
     """The next-token loss (0-d fp32) of ``tokens`` (B, S) against
     ``labels`` (B, S) (-1 masked); qwen2-vl's ``visual_embeds`` and
     ``mrope_positions`` as in prefill.  Each layer is checkpointed (its
@@ -432,7 +476,7 @@ def dense_train_loss(params: dict, cfg: ModelConfig, batch: dict, *,
     plain code (``train_attention_impl``)."""
     return decoder_train_loss(params, cfg, batch, _mlp_layer,
                               vocab_chunk=vocab_chunk, attn_impl=attn_impl,
-                              compute_dtype=compute_dtype)
+                              compute_dtype=compute_dtype, shd=shd)
 
 
 # ---------------------------------------------------------------------------
@@ -443,14 +487,14 @@ def dense_train_loss(params: dict, cfg: ModelConfig, batch: dict, *,
 def decoder_prefill(params: dict, cfg: ModelConfig, batch: dict,
                     mlp: Callable, *, max_len=None, attn_impl: str = "auto",
                     compute_dtype: torch.dtype = L.COMPUTE_DTYPE,
-                    fp32: tuple = NORMS):
+                    fp32: tuple = NORMS, shd: Optional[ShardingCtx] = None):
     """The decoder-only prefill with the feed-forward sublayer ``mlp(x, p,
     cfg)`` (``_mlp_layer``, or the MoE's ``_moe_mlp``) and the layer
     parameters ``fp32`` kept in fp32; see ``dense_prefill``."""
     tokens = batch["tokens"]
     B, S = tokens.shape
     dev = params["embed"].device
-    h = _embed_tokens(params, cfg, batch, compute_dtype)
+    h = _embed_tokens(params, cfg, batch, compute_dtype, shd)
     positions = _positions(cfg, batch, B, S, dev)
     prompt_lens = batch.get("prompt_lens")
     if prompt_lens is None:
@@ -459,16 +503,24 @@ def decoder_prefill(params: dict, cfg: ModelConfig, batch: dict,
     for i in range(cfg.num_layers):
         p = _layer_params(params, i, compute_dtype, fp32=fp32)
         h, (k, v) = _attn_layer_full(h, p, cfg, positions,
-                                     attn_impl=attn_impl, return_kv=True)
-        h = mlp(h, p, cfg)
+                                     attn_impl=attn_impl, return_kv=True,
+                                     shd=shd)
+        h = mlp(h, p, cfg, shd)
         cache = _cache_layer(cache, i, cfg.num_layers,
                              L.finalize_prefill_cache(k, v, cfg, max_len))
-    return _last_logits(params, cfg, h, prompt_lens), cache, prompt_lens
+    return (_last_logits(params, cfg, h, prompt_lens, shd), stack_cache(cache),
+            prompt_lens)
 
 
 def _cache_layer(cache: Optional[dict], i: int, n: int, layer: dict) -> dict:
     """Store one layer's cache entries at ``i`` of a stacked (n, ...) cache,
-    allocated at the first layer."""
+    allocated at the first layer; DTensor entries are kept in a list for
+    ``stack_cache``."""
+    if any(isinstance(t, DTensor) for t in layer.values()):
+        cache = cache if cache is not None else {k: [] for k in layer}
+        for k, t in layer.items():
+            cache[k].append(t)
+        return cache
     if cache is None:
         cache = {k: torch.empty((n,) + t.shape, dtype=t.dtype,
                                 device=t.device) for k, t in layer.items()}
@@ -477,16 +529,27 @@ def _cache_layer(cache: Optional[dict], i: int, n: int, layer: dict) -> dict:
     return cache
 
 
-def _last_logits(params: dict, cfg: ModelConfig, h, prompt_lens):
-    """Logits at the last prompt position of each sequence of h (B, S, D)."""
-    B, S = h.shape[:2]
+def stack_cache(cache: dict) -> dict:
+    """A cache ``_cache_layer`` built: the stacked dict, with its DTensor
+    entries' layer lists stacked."""
+    return {k: torch.stack(t) if isinstance(t, list) else t
+            for k, t in cache.items()}
+
+
+def _last_logits(params: dict, cfg: ModelConfig, h, prompt_lens,
+                 shd: Optional[ShardingCtx] = None):
+    """Logits at the last prompt position of each sequence of h (B, S, D)
+    (a gather along S: DTensor propagates its placements)."""
+    S, D = h.shape[1], h.shape[2]
     idx = torch.clamp(prompt_lens.to(h.device).long() - 1, 0, S - 1)
-    return _logits(params, cfg, h[torch.arange(B, device=h.device), idx])
+    last = torch.gather(h, 1, idx[:, None, None].expand(-1, 1, D))[:, 0]
+    return _logits(params, cfg, last, shd)
 
 
 def dense_prefill(params: dict, cfg: ModelConfig, batch: dict, *,
                   max_len=None, attn_impl: str = "auto",
-                  compute_dtype: torch.dtype = L.COMPUTE_DTYPE):
+                  compute_dtype: torch.dtype = L.COMPUTE_DTYPE,
+                  shd: Optional[ShardingCtx] = None):
     """Returns (last-prompt-position logits (B, V), cache, prompt_lens (B,)).
 
     batch: ``tokens`` (B, S), optionally ``prompt_lens`` (B,) (default S),
@@ -495,7 +558,8 @@ def dense_prefill(params: dict, cfg: ModelConfig, batch: dict, *,
     ``(L, B, max_len, KVH, hd)`` dict of ``layers.init_kv_cache``.
     """
     return decoder_prefill(params, cfg, batch, _mlp_layer, max_len=max_len,
-                           attn_impl=attn_impl, compute_dtype=compute_dtype)
+                           attn_impl=attn_impl, compute_dtype=compute_dtype,
+                           shd=shd)
 
 
 @dataclasses.dataclass
@@ -528,16 +592,23 @@ class DecodeAttention:
         S = cache["k"].shape[2]
         kv_len = kv_len.to(device=x.device, dtype=torch.int32)
         step = cls(cfg, route, kv_len, torch.clamp(kv_len + 1, max=S))
-        if route in ("paged", "paged_ref"):
-            step.tables = torch.arange(x.shape[0], dtype=torch.int32,
-                                       device=x.device)[:, None]
-            step.overflow = int(kv_len.max()) >= S
+        if route in ("paged", "paged_ref") and not isinstance(x, DTensor):
+            step.plan_pages(kv_len, S)
         return step
+
+    def plan_pages(self, kv_len, S: int) -> None:
+        """The page tables (one page per row) and the overflow flag of the
+        rows ``kv_len`` (B,) holds."""
+        self.tables = torch.arange(kv_len.shape[0], dtype=torch.int32,
+                                   device=kv_len.device)[:, None]
+        self.overflow = int(kv_len.max()) >= S
 
     def __call__(self, cache: dict, i: int, q, k, v, compute_dtype):
         """Layer ``i``: write the token's K/V (B, 1, KVH, hd) into the
         cache and attend q (B, 1, Hq, hd) over it; counted in
-        ``DECODE_ROUTES``.  Returns (B, 1, Hq, hd)."""
+        ``DECODE_ROUTES``.  Returns (B, 1, Hq, hd).  DTensors go through
+        the paged routes on each device's shard: its rows and heads of q,
+        the new K/V and the cache, which the kernel writes in place."""
         cfg, route = self.cfg, self.route
         DECODE_ROUTES[route] += 1
         if route not in ("paged", "paged_ref"):
@@ -545,26 +616,46 @@ class DecodeAttention:
             kc, vc = L.cache_layer_arrays(cache, i, cfg, compute_dtype)
             return L.decode_attention(q, kc, vc, self.valid,
                                       kv_chunk=cfg.decode_kv_chunk)
-        impl = "cuda" if route == "paged" else "ref"
         # the layer's (B, S, KVH, hd) slice: B pages of S tokens
         k_pages, v_pages = cache["k"][i], cache["v"][i]
+        if not isinstance(q, DTensor):
+            return self._paged(cache, i, q, k, v, k_pages, v_pages,
+                               self.kv_len, self.valid)
+        pl, mesh, (q, k, v) = head_shards(q, k, v)
+        if tuple(k_pages.placements) != tuple(pl):
+            raise NotImplementedError(
+                f"the paged routes need the cache placed as the query "
+                f"({k_pages.placements} against {pl})")
+        rows = project(pl, {0: 0})
+        kv_len, valid = (local_as(t, rows, mesh)
+                         for t in (self.kv_len, self.valid))
+        if self.tables is None:  # this device's rows
+            self.plan_pages(kv_len, k_pages.shape[1])
+        local = {n: t.to_local() for n, t in cache.items()}
+        o = self._paged(local, i, q, k, v, k_pages.to_local(),
+                        v_pages.to_local(), kv_len, valid)
+        return DTensor.from_local(o, mesh, pl, run_check=False)
+
+    def _paged(self, cache, i, q, k, v, k_pages, v_pages, kv_len, valid):
+        impl = "cuda" if self.route == "paged" else "ref"
         if self.overflow:
-            L.cache_insert_layer(cache, i, k, v, self.kv_len, cfg)
+            L.cache_insert_layer(cache, i, k, v, kv_len, self.cfg)
             o = paged_attention(q[:, 0], k_pages, v_pages, self.tables,
-                                self.valid, impl=impl)
+                                valid, impl=impl)
         else:
             o, _, _ = paged_decode_step(q[:, 0], k[:, 0], v[:, 0], k_pages,
-                                        v_pages, self.tables, self.kv_len,
+                                        v_pages, self.tables, kv_len,
                                         impl=impl)
         return o[:, None]
 
 
 def _attn_layer_decode(x, p, cfg: ModelConfig, positions, cache: dict,
-                       i: int, attn: DecodeAttention, compute_dtype):
+                       i: int, attn: DecodeAttention, compute_dtype,
+                       shd: Optional[ShardingCtx] = None):
     """One-token self-attention sublayer with its residual (decode): x
     (B, 1, D), the token's K/V written into layer ``i`` of the cache."""
     h = L.rms_norm(x, p["ln1"], cfg.norm_eps)
-    q, k, v = _qkv(h, p, cfg)
+    q, k, v = _qkv(h, p, cfg, shd)
     q = L.apply_rope(q, positions, cfg.rope_theta, cfg.mrope_sections)
     k = L.apply_rope(k, positions, cfg.rope_theta, cfg.mrope_sections)
     o = attn(cache, i, q, k, v, compute_dtype)
@@ -575,34 +666,36 @@ def decoder_decode_step(params: dict, cfg: ModelConfig, cache: dict,
                         batch: dict, mlp: Callable, *,
                         attn_impl: str = "auto",
                         compute_dtype: torch.dtype = L.COMPUTE_DTYPE,
-                        fp32: tuple = NORMS):
+                        fp32: tuple = NORMS,
+                        shd: Optional[ShardingCtx] = None):
     """The decoder-only decode step with the feed-forward sublayer
     ``mlp(x, p, cfg)`` and the ``fp32`` layer parameters as in
     ``decoder_prefill``; see ``dense_decode_step``."""
     tokens = batch["tokens"]
     B = tokens.shape[0]
     dev = params["embed"].device
-    x = params["embed"][tokens.long()].to(compute_dtype)
+    x = embed(params, tokens, compute_dtype)
     positions = _positions(cfg, batch, B, 1, dev, offset=batch["kv_len"])
     attn = DecodeAttention.plan(cfg, x, attn_impl, cache, batch["kv_len"])
     for i in range(cfg.num_layers):
         p = _layer_params(params, i, compute_dtype, fp32=fp32)
         x = _attn_layer_decode(x, p, cfg, positions, cache, i, attn,
-                               compute_dtype)
-        x = mlp(x, p, cfg)
-    return _logits(params, cfg, x[:, 0]), cache
+                               compute_dtype, shd)
+        x = mlp(x, p, cfg, shd)
+    return _logits(params, cfg, x[:, 0], shd), cache
 
 
 def dense_decode_step(params: dict, cfg: ModelConfig, cache: dict,
                       batch: dict, *, attn_impl: str = "auto",
-                      compute_dtype: torch.dtype = L.COMPUTE_DTYPE):
+                      compute_dtype: torch.dtype = L.COMPUTE_DTYPE,
+                      shd: Optional[ShardingCtx] = None):
     """batch: ``tokens`` (B, 1), ``kv_len`` (B,).  Returns (logits (B, V),
     cache), the cache updated in place with one token write per layer
     (what donation does in the reference); a write past the cache's end is
     dropped (``DecodeAttention``)."""
     return decoder_decode_step(params, cfg, cache, batch, _mlp_layer,
                                attn_impl=attn_impl,
-                               compute_dtype=compute_dtype)
+                               compute_dtype=compute_dtype, shd=shd)
 
 
 def init_cache_shape(cfg: ModelConfig, batch: int, max_len: int, *,

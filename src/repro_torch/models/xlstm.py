@@ -25,17 +25,29 @@ time loops' steps are counted in ``LOOP_STEPS``.
 from __future__ import annotations
 
 import math
+from typing import Optional
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers as L
 from repro_torch.models.layers import cast_once
+from repro_torch.models.sharding import (
+    ShardingCtx,
+    along,
+    constrain,
+    linear,
+    on_batch_shards,
+    pointwise,
+    reshape,
+)
 from repro_torch.models.transformer import (
     _last_logits,
     _logits,
     cross_entropy,
+    embed,
     train_attention_impl,
 )
 
@@ -141,8 +153,8 @@ def _mlstm_parallel(q, k, v, i_raw, f_raw, chunk: int):
     depends on its own query only, so the last chunk runs short where the
     reference pads it."""
     B, S, H, dk = q.shape
-    logf = F.logsigmoid(f_raw.float())  # (B, S, H)
-    Fcum = torch.cumsum(logf, dim=1)  # inclusive
+    logf = pointwise(F.logsigmoid, f_raw.float())  # (B, S, H)
+    Fcum = along(lambda t: torch.cumsum(t, dim=1), logf, 1)  # inclusive
     i32 = i_raw.float()
     k32, v32 = k.float(), v.float()
     kpos = torch.arange(S, device=q.device)
@@ -173,7 +185,7 @@ def _mlstm_step(q, k, v, i_raw, f_raw, state):
     m): (B, H, dk, dk), (B, H, dk), (B, H), fp32."""
     Cm, nm, m = state
     dk = q.shape[-1]
-    logf = F.logsigmoid(f_raw.float())
+    logf = pointwise(F.logsigmoid, f_raw.float())
     i32 = i_raw.float()
     m_new = torch.maximum(logf + m, i32)
     fdec = torch.exp(logf + m - m_new)[..., None]
@@ -194,16 +206,18 @@ def _mlstm_inputs(x, p, cfg: ModelConfig):
     x's dtype, i_raw, f_raw (B, S, H) fp32)."""
     _, _, H, dk, _, _ = _dims(cfg)
     h = L.rms_norm(x, p["ln"], cfg.norm_eps)
-    u, gate = (h @ p["w_up"]).chunk(2, dim=-1)
+    u, gate = linear(h, p["w_up"]).chunk(2, dim=-1)
     B, S = u.shape[:2]
-    q, k, v = ((u @ p[w]).reshape(B, S, H, dk) for w in ("wq", "wk", "wv"))
+    q, k, v = (reshape(linear(u, p[w]), B, S, H, dk)
+               for w in ("wq", "wk", "wv"))
     u32 = u.float()
-    i_raw = u32 @ p["w_i"] + p["b_i"]
-    f_raw = u32 @ p["w_f"] + p["b_f"]
+    i_raw = linear(u32, p["w_i"]) + p["b_i"]
+    f_raw = linear(u32, p["w_f"]) + p["b_f"]
     return gate, q, k, v, i_raw, f_raw
 
 
-def mlstm_block(x, p, cfg: ModelConfig, state=None, inputs=None):
+def mlstm_block(x, p, cfg: ModelConfig, state=None, inputs=None,
+                shd: Optional[ShardingCtx] = None):
     """The mLSTM block with its residual: the parallel form over the whole
     sequence (``state`` None), else one recurrent step.  ``inputs``: the
     block's ``_mlstm_inputs`` when the caller has them.  Returns (out, new
@@ -219,15 +233,18 @@ def mlstm_block(x, p, cfg: ModelConfig, state=None, inputs=None):
         y, new_state = _mlstm_step(q[:, 0], k[:, 0], v[:, 0], i_raw[:, 0],
                                    f_raw[:, 0], state)
         y = y[:, None]
-    y = L.rms_norm(y.reshape(B, S, Di).to(x.dtype), p["ln_cell"],
+    y = L.rms_norm(reshape(y, B, S, Di).to(x.dtype), p["ln_cell"],
                    cfg.norm_eps)
     y = y * F.silu(gate)
-    return x + y @ p["w_down"], new_state
+    return constrain(shd, "residual", x + linear(y, p["w_down"])), new_state
 
 
 def mlstm_final_state(q, k, v, i_raw, f_raw):
     """The final (C, n, m) after a whole prefill sequence, stepped over
-    every position in order (for the decode handoff)."""
+    every position in order (for the decode handoff), on each device's
+    rows of DTensors (``sharding.on_batch_shards``)."""
+    if isinstance(q, DTensor):
+        return on_batch_shards(mlstm_final_state, [q, k, v, i_raw, f_raw])
     B, S, H, dk = q.shape
     state = (torch.zeros((B, H, dk, dk), dtype=torch.float32,
                          device=q.device),
@@ -249,7 +266,13 @@ def mlstm_final_state(q, k, v, i_raw, f_raw):
 def _slstm_scan(g_in, r, state):
     """g_in: (B, S, 4, H, dh) input-kernel preactivations (with the bias);
     r: (4, H, dh, dh) recurrent kernels; state (c, n, h, m), each (B, H,
-    dh).  Returns (hs (B, S, H, dh), the final state), fp32."""
+    dh).  Returns (hs (B, S, H, dh), the final state), fp32.  DTensors
+    run on each device's rows with the recurrent kernels whole
+    (``sharding.on_batch_shards``)."""
+    if isinstance(g_in, DTensor):
+        return on_batch_shards(
+            lambda g, c, n, h, m, r_: _slstm_scan(g, r_, (c, n, h, m)),
+            [g_in, *state], [r])
     c, n, h, m = state
     hs = []
     for t in range(g_in.shape[1]):
@@ -267,23 +290,27 @@ def _slstm_scan(g_in, r, state):
     return torch.stack(hs, dim=1), (c, n, h, m)
 
 
-def slstm_block(x, p, cfg: ModelConfig, state=None):
+def slstm_block(x, p, cfg: ModelConfig, state=None,
+                shd: Optional[ShardingCtx] = None):
     """The sLSTM block (the recurrence, then a gated FFN of width Fs), each
     with its residual.  Returns (out, new state)."""
     D, _, H, _, dh, _ = _dims(cfg)
     h = L.rms_norm(x, p["ln"], cfg.norm_eps)
     B, S = h.shape[:2]
-    g_in = torch.einsum("bsd,dghe->bsghe", h.float(), p["w_gates"]) \
+    w = p["w_gates"]  # (D, 4, H, dh)
+    g_in = reshape(linear(h.float(), reshape(w, D, -1)), B, S,
+                   *w.shape[1:]) \
         + p["b_gates"]
     if state is None:
         z = torch.zeros((B, H, dh), dtype=torch.float32, device=x.device)
         state = (z, z, z, torch.full_like(z, NEG_INIT))
     hs, new_state = _slstm_scan(g_in, p["r_gates"], state)
-    y = L.rms_norm(hs.reshape(B, S, D).to(x.dtype), p["ln_out"],
+    y = L.rms_norm(reshape(hs, B, S, D).to(x.dtype), p["ln_out"],
                    cfg.norm_eps)
     x = x + y
-    g = F.silu(x @ p["ffn_gate"])
-    return x + (g * (x @ p["ffn_up"])) @ p["ffn_down"], new_state
+    g = F.silu(linear(x, p["ffn_gate"]))
+    out = x + linear(g * linear(x, p["ffn_up"]), p["ffn_down"])
+    return constrain(shd, "residual", out), new_state
 
 
 # ---------------------------------------------------------------------------
@@ -297,25 +324,26 @@ def _block_params(p: dict, dtype: torch.dtype) -> dict:
 
 
 def _block(h, raw: dict, cfg: ModelConfig, i: int, state=None,
-           collect: bool = False, compute_dtype=L.COMPUTE_DTYPE):
+           collect: bool = False, compute_dtype=L.COMPUTE_DTYPE,
+           shd: Optional[ShardingCtx] = None):
     """Block ``i`` (its fp32 parameters ``raw``) on h: one step from
     ``state`` (decode), or the whole sequence, with ``collect`` also the
     mLSTM's final state from ``mlstm_final_state`` (prefill).  Returns (h,
     the new state)."""
     p = _block_params(raw, compute_dtype)
     if i % 2:
-        return slstm_block(h, p, cfg, state=state)
+        return slstm_block(h, p, cfg, state=state, shd=shd)
     if collect and state is None:
         inputs = _mlstm_inputs(h, p, cfg)
         final = mlstm_final_state(*inputs[1:])
-        h, _ = mlstm_block(h, p, cfg, inputs=inputs)
+        h, _ = mlstm_block(h, p, cfg, inputs=inputs, shd=shd)
         return h, final
-    return mlstm_block(h, p, cfg, state=state)
+    return mlstm_block(h, p, cfg, state=state, shd=shd)
 
 
 def _trunk(params: dict, cfg: ModelConfig, h, states=None,
            collect: bool = False, compute_dtype=L.COMPUTE_DTYPE,
-           keep_states: bool = True):
+           keep_states: bool = True, shd: Optional[ShardingCtx] = None):
     """Every block in order.  ``states`` (decode): one state tuple per
     block.  ``collect`` (prefill): also the mLSTM's final state.
     ``keep_states`` False (the train loss): no state is kept.  Returns (h,
@@ -324,7 +352,7 @@ def _trunk(params: dict, cfg: ModelConfig, h, states=None,
     for i, raw in enumerate(params["blocks"]):
         h, ns = _block(h, raw, cfg, i,
                        state=states[i] if states is not None else None,
-                       collect=collect, compute_dtype=compute_dtype)
+                       collect=collect, compute_dtype=compute_dtype, shd=shd)
         if keep_states:
             new_states.append(ns)
     return h, new_states if keep_states else None
@@ -332,24 +360,26 @@ def _trunk(params: dict, cfg: ModelConfig, h, states=None,
 
 def xlstm_train_loss(params: dict, cfg: ModelConfig, batch: dict, *,
                      vocab_chunk: int = 0, attn_impl: str = "auto",
-                     compute_dtype: torch.dtype = L.COMPUTE_DTYPE
-                     ) -> torch.Tensor:
+                     compute_dtype: torch.dtype = L.COMPUTE_DTYPE,
+                     shd: Optional[ShardingCtx] = None) -> torch.Tensor:
     """The next-token loss of ``tokens`` against ``labels`` (B, S), -1
     masked, through every block over the whole sequence (the sLSTM's time
     loop, counted in ``LOOP_STEPS``) with no state kept.  ``attn_impl``
     is checked as for every family (no block attends)."""
     train_attention_impl(attn_impl)
     tokens = batch["tokens"]
-    h = params["embed"][tokens.long()].to(compute_dtype)
+    h = constrain(shd, "residual", embed(params, tokens, compute_dtype))
     h, _ = _trunk(params, cfg, h, compute_dtype=compute_dtype,
-                  keep_states=False)
+                  keep_states=False, shd=shd)
     h = L.rms_norm(h, params["final_ln"], cfg.norm_eps)
-    return cross_entropy(h, params["lm_head"], batch["labels"], vocab_chunk)
+    return cross_entropy(h, params["lm_head"], batch["labels"], vocab_chunk,
+                         shd)
 
 
 def xlstm_prefill(params: dict, cfg: ModelConfig, batch: dict, *,
                   max_len=None, attn_impl: str = "auto",
-                  compute_dtype: torch.dtype = L.COMPUTE_DTYPE):
+                  compute_dtype: torch.dtype = L.COMPUTE_DTYPE,
+                  shd: Optional[ShardingCtx] = None):
     """Returns (last-prompt-position logits (B, V), the decode state (a
     tuple of per-block state tuples), prompt_lens (B,)).  ``max_len`` and
     ``attn_impl`` are taken for the Model API's signature: the state does
@@ -357,26 +387,27 @@ def xlstm_prefill(params: dict, cfg: ModelConfig, batch: dict, *,
     tokens = batch["tokens"]
     B, S = tokens.shape
     dev = params["embed"].device
-    h = params["embed"][tokens.long()].to(compute_dtype)
+    h = constrain(shd, "residual", embed(params, tokens, compute_dtype))
     prompt_lens = batch.get("prompt_lens")
     if prompt_lens is None:
         prompt_lens = torch.full((B,), S, dtype=torch.int32, device=dev)
     h, states = _trunk(params, cfg, h, collect=True,
-                       compute_dtype=compute_dtype)
-    return (_last_logits(params, cfg, h, prompt_lens), tuple(states),
+                       compute_dtype=compute_dtype, shd=shd)
+    return (_last_logits(params, cfg, h, prompt_lens, shd), tuple(states),
             prompt_lens)
 
 
 def xlstm_decode_step(params: dict, cfg: ModelConfig, cache: tuple,
                       batch: dict, *, attn_impl: str = "auto",
-                      compute_dtype: torch.dtype = L.COMPUTE_DTYPE):
+                      compute_dtype: torch.dtype = L.COMPUTE_DTYPE,
+                      shd: Optional[ShardingCtx] = None):
     """batch: ``tokens`` (B, 1) (``kv_len`` is not read: the state holds
     the history).  Returns (logits (B, V), cache), every state tensor
     updated in place."""
-    h = params["embed"][batch["tokens"].long()].to(compute_dtype)
+    h = embed(params, batch["tokens"], compute_dtype)
     h, new_states = _trunk(params, cfg, h, states=list(cache),
-                           compute_dtype=compute_dtype)
+                           compute_dtype=compute_dtype, shd=shd)
     for old, new in zip(cache, new_states):
         for a, b in zip(old, new):
-            a.copy_(b)
-    return _logits(params, cfg, h[:, 0]), cache
+            L.write_state(a, (), b)
+    return _logits(params, cfg, h[:, 0], shd), cache

@@ -61,11 +61,12 @@ def _compress(g, how: str):
 
 
 def value_and_grad(model: Model, params, batch: dict,
-                   vocab_chunk: int = 0):
+                   vocab_chunk: int = 0, shd=None):
     """(the train loss, its gradient with respect to every leaf of
-    ``params``, a tree of ``params``' structure)."""
+    ``params``, a tree of ``params``' structure); ``shd`` as the Model
+    API takes it."""
     leaves = [p.detach().requires_grad_(True) for p in tree_leaves(params)]
-    loss = model.train_loss(tree_unflatten(params, leaves), batch,
+    loss = model.train_loss(tree_unflatten(params, leaves), batch, shd=shd,
                             vocab_chunk=vocab_chunk)
     # a leaf the loss does not read gets a zero gradient, as in JAX
     grads = torch.autograd.grad(loss, leaves, allow_unused=True,

@@ -109,7 +109,7 @@ def test_restore_checks_the_template(tmp_path):
     with pytest.raises(ValueError):
         ck.restore({"a": torch.zeros(2, dtype=torch.float64),
                     "b": torch.zeros(3)})
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match="needs the mesh"):
         ck.restore({"a": torch.zeros(2), "b": torch.zeros(3)},
                    shardings=object())
     with pytest.raises(FileNotFoundError):

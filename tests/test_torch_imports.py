@@ -79,7 +79,22 @@ PORTED_NAMES = {
     "repro_torch.models.layers": (
         "decode_attention", "quantize_kv", "dequantize_kv", "init_kv_cache",
         "cache_insert", "finalize_prefill_cache", "cache_kv_arrays",
-        "cache_insert_layer", "cache_layer_arrays", "swiglu", "gelu_mlp"),
+        "cache_insert_layer", "cache_layer_arrays", "swiglu", "gelu_mlp",
+        "kv_replication_factor"),
+    "repro_torch.models.sharding": (
+        "MODEL_AXIS", "dp_axes", "ShardingCtx", "constrain",
+        "dense_layer_specs", "moe_layer_specs", "mamba_layer_specs",
+        "embed_specs", "batch_pspec", "cache_pspec"),
+    "repro_torch.launch.mesh": ("make_production_mesh", "make_local_mesh"),
+    "repro_torch.launch.shardings": ("leaf_spec", "param_specs", "_dp",
+                                     "batch_specs", "cache_specs_tree",
+                                     "named_tree"),
+    "repro_torch.launch.steps": ("build_cell",),
+    "repro_torch.launch.hlo_analysis": ("DeviceCost",),
+    "repro_torch.launch.dryrun": ("ARCHS", "input_specs", "run_cell",
+                                  "cell_list", "main"),
+    "repro_torch.launch.roofline": ("load_records", "terms", "table",
+                                    "pick_hillclimb_cells", "main"),
     "repro_torch.models.transformer": (
         "init_dense", "dense_prefill", "dense_decode_step",
         "init_cache_shape", "_embed_tokens", "_positions", "_qkv",
