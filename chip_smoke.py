@@ -25,11 +25,17 @@ script exits non-zero without printing a result:
    ``SPLIT_TOKENS``); flash attention forward
    (2e-2 / 2e-5, bf16 within two bf16 ulps of the plain version and, at
    S >= 1,000, each row within 1e-2 of it in relative L2 norm) at a B=4
-   prefill of 128 and of 2,048 tokens, ragged lengths, the demo heads and
-   one non-causal case; batched LoRA (5e-2 / 1e-4) at decode and prefill
-   widths, four adapters packed by ``pack_segments`` and a T off the row
-   tile, and both of its paths (split-D and tiled, forced) at T = 128,
-   256, 512 and 1,024, bitwise equal, timed for the split threshold; and
+   prefill of 128 and of 2,048 tokens, ragged lengths, the demo heads,
+   one non-causal case and the sliding window past itself (mixtral-8x22b's
+   and zamba2-2.7b's heads at 8,192 tokens in their window of 4,096,
+   mixtral's at 32,768, each also timed without the window: at 32,768,
+   where the window keeps 0.234 of the causal pairs, its time must be under
+   half the causal time, as the tiles before each window are skipped;
+   SDPA with the boolean window mask as the library yardstick); batched
+   LoRA (5e-2 / 1e-4) at decode and prefill widths, four adapters packed
+   by ``pack_segments`` and a T off the row tile, and both of its paths
+   (split-D and tiled, forced) at T = 128, 256, 512 and 1,024, bitwise
+   equal, timed for the split threshold; and
    flash and LoRA at every shape the main paths below give them
    (``main_*`` cases: one per prefill group, as the executor groups
    requests by chain and length bucket, and one per app-lora decode batch
@@ -112,7 +118,11 @@ script exits non-zero without printing a result:
    runs' routing logged: rows whose own token took other experts counted,
    at most a quarter, the rest held to the chain bound; a first flip at a
    clear router gap fails), capacity 1.25's dropped
-   fraction, one profiled step against the weights' read floor; encdec --
+   fraction, one profiled step against the weights' read floor; then
+   mixtral's window run: prompts of 8,192 and 6,000 tokens padded to
+   8,192 (two windows) into the ring of 4,096 slots, 32 steps: flash with
+   the window 2, the ring's insert and the attend-only paged launch 2 a
+   step, held against the ref route as above; encdec --
    seamless-m4t-medium whole: the encoder on flash non-causal, the
    decoder's self-attention on flash and the fused paged step, its
    cross-attention on the attend-only paged kernel at ``src_len`` (the
@@ -126,7 +136,9 @@ script exits non-zero without printing a result:
    input, the whole runs by their tokens; then the ring run (one
    4,080-token prompt in the 4,096-slot window, 32 steps: the fused step,
    then the ring's insert and the attend-only launch at hd 80), held the
-   same way; ssm --
+   same way; then the window run (one 8,192-token prompt, two windows,
+   into the ring of 4,096 slots, 32 steps: flash with the window 9, the
+   attend-only launch 9 a step), held the same way; ssm --
    xlstm-125m whole, 4 prompts padded to 512, 64 greedy steps, no kernel
    launched, an fp32 run of the same weights on the card held against the
    same run on the host's CPU (tokens at a clear margin), the bf16 run
@@ -733,18 +745,56 @@ def long_decode_cases(cfg, reqs):
     return cases
 
 
+def window_pairs(S: int, W: int) -> int:
+    """Query-key pairs a causal prefill of S keeps: sum_i min(i + 1, W)
+    under a window W > 0, S (S + 1) / 2 without."""
+    if not W or W >= S:
+        return S * (S + 1) // 2
+    return W * (W + 1) // 2 + (S - W) * W
+
+
+def window_sdpa(q, k, v, window):
+    """One SDPA call with an explicit boolean window mask (key j kept for
+    row i iff i - W < j <= i), ``enable_gqa=True``, on K/V expanded to q's
+    heads beforehand (its GQA path takes no mask): a library yardstick
+    timed here only; the port never calls it.  The math backend, which
+    would build the (B, Hq, S, S) scores, is not allowed."""
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    G = q.shape[1] // k.shape[1]
+    qc = q.contiguous()
+    kc, vc = (t.repeat_interleave(G, dim=1).contiguous() for t in (k, v))
+    i = torch.arange(q.shape[2], device=q.device)
+    mask = (i[None, :] <= i[:, None]) & (i[None, :] > i[:, None] - window)
+
+    def call():
+        with sdpa_kernel([SDPBackend.EFFICIENT_ATTENTION,
+                          SDPBackend.CUDNN_ATTENTION]):
+            return torch.nn.functional.scaled_dot_product_attention(
+                qc, kc, vc, attn_mask=mask, enable_gqa=True)
+
+    return call
+
+
 def flash_phase(cases, flush):
     """Flash attention forward: the kernel on (B, S, H, hd) tensors seen
-    as (B, H, S, hd) views, as the serving path hands them over."""
+    as (B, H, S, hd) views, as the serving path hands them over; a case's
+    optional seventh field is its sliding window (0: none).  A windowed
+    case also times the kernel without the window at its shape, and where
+    the window keeps under a quarter of the causal pairs its bf16 time
+    must be under half the causal time (the tiles before each window are
+    skipped, not masked)."""
     rows = []
-    for name, (B, Hq, KVH, S, hd, causal) in cases.items():
+    for name, (B, Hq, KVH, S, hd, causal, *opt) in cases.items():
+        window = opt[0] if opt else 0
         for dtype in (torch.bfloat16, torch.float32):
             g = torch.Generator(DEVICE).manual_seed(len(rows))
             q, k, v = (torch.randn(B, S, h, hd, generator=g, device=DEVICE)
                        .to(dtype).transpose(1, 2) for h in (Hq, KVH, KVH))
-            got = flash_attention(q, k, v, causal=causal, impl="cuda")
+            got = flash_attention(q, k, v, causal=causal, window=window,
+                                  impl="cuda")
             torch.cuda.synchronize()
-            want = flash_attention_ref(q, k, v, causal=causal)
+            want = flash_attention_ref(q, k, v, causal=causal, window=window)
             err = float((got.float() - want.float()).abs().max())
             row_rel = float(((got.float() - want.float()).norm(dim=-1)
                              / want.float().norm(dim=-1)).max())
@@ -756,24 +806,42 @@ def flash_phase(cases, flush):
                 if S >= ROW_REL_MIN_S and not row_rel <= ROW_REL_TOL:
                     raise RuntimeError(f"flash {name}: row relative error "
                                        f"{row_rel} > {ROW_REL_TOL}")
-            del want  # the (B, Hq, S, S) scores are gigabytes at S = 2048
-            iters = 5 if S >= 1024 else 20
-            k_ms = time_ms(lambda: flash_attention(q, k, v, causal=causal,
-                                                   impl="cuda"), iters, flush)
-            r_ms = time_ms(lambda: flash_attention_ref(q, k, v,
-                                                       causal=causal),
-                           iters, flush)
-            qc, kc, vc = q.contiguous(), k.contiguous(), v.contiguous()
+            del want
+            iters = 2 if S >= 16384 else 3 if S >= 8192 else 5 \
+                if S >= 1024 else 20
+            k_ms = time_ms(lambda: flash_attention(
+                q, k, v, causal=causal, window=window, impl="cuda"), iters,
+                flush)
+            r_ms = time_ms(lambda: flash_attention_ref(
+                q, k, v, causal=causal, window=window), iters, flush)
+            if window:
+                sdpa = window_sdpa(q, k, v, window)
+            else:
+                qc, kc, vc = q.contiguous(), k.contiguous(), v.contiguous()
 
-            def sdpa():  # library yardstick, timed only
-                return torch.nn.functional.scaled_dot_product_attention(
-                    qc, kc, vc, is_causal=causal, enable_gqa=True)
+                def sdpa():  # library yardstick, timed only
+                    return torch.nn.functional.scaled_dot_product_attention(
+                        qc, kc, vc, is_causal=causal, enable_gqa=True)
 
             lib_err = float((sdpa().float() - got.float()).abs().max())
             l_ms = time_ms(sdpa, iters, flush)
-            del qc, kc, vc
+            del sdpa
+            extra = {}
+            if window:  # the same shape without the window
+                c_ms = time_ms(lambda: flash_attention(q, k, v, impl="cuda"),
+                               iters, flush)
+                ratio = window_pairs(S, window) / window_pairs(S, 0)
+                extra = {"window": window, "causal_kernel_ms": c_ms,
+                         "pairs_over_causal": ratio,
+                         "ms_over_causal": k_ms / c_ms}
+                if dtype == torch.bfloat16 and ratio < 0.25 \
+                        and not k_ms < 0.5 * c_ms:
+                    raise RuntimeError(
+                        f"flash {name}: {k_ms} ms with the window against "
+                        f"{c_ms} ms causal: the window keeps {ratio} of the "
+                        "pairs, so its skipped tiles should halve the time")
             item = q.element_size()
-            pairs = S * (S + 1) / 2 if causal else S * S
+            pairs = window_pairs(S, window) if causal else S * S
             b_ms, b_by = peak_bound(
                 (2 * B * Hq + 2 * B * KVH) * S * hd * item,
                 4.0 * B * Hq * hd * pairs, dtype)
@@ -786,7 +854,7 @@ def flash_phase(cases, flush):
                    and S >= ROW_REL_MIN_S else None,
                    "library_max_abs_err": lib_err, "kernel_ms": k_ms,
                    "ref_ms": r_ms, "library_ms": l_ms, "bound_ms": b_ms,
-                   "bound_by": b_by}
+                   "bound_by": b_by, **extra}
             emit(row)
             rows.append(row)
     return rows
@@ -1786,10 +1854,14 @@ def settle() -> int:
 
 def api_prompts(cfg, B, S, lens, seed):
     """(tokens (B, S) right-padded with 0, prompt lengths (B,)) from a
-    numpy seed, on the card."""
+    numpy seed, on the card: lengths drawn from the range ``lens``, or
+    given per row where ``B`` is None."""
     rng = np.random.RandomState(seed)
-    n = rng.randint(lens[0], lens[1] + 1, size=B).astype(np.int32)
-    tok = rng.randint(0, cfg.vocab_size, size=(B, S)).astype(np.int32)
+    if B is None:
+        n = np.asarray(lens, np.int32)
+    else:
+        n = rng.randint(lens[0], lens[1] + 1, size=B).astype(np.int32)
+    tok = rng.randint(0, cfg.vocab_size, size=(len(n), S)).astype(np.int32)
     tok[np.arange(S)[None, :] >= n[:, None]] = 0
     return (torch.from_numpy(tok).to(DEVICE),
             torch.from_numpy(n).to(DEVICE))
@@ -2167,6 +2239,10 @@ MOE_RUNS = {  # model: (padded S, prompt lengths drawn from, numpy seed)
     "dbrx-132b": (256, (64, 256), 15),
     "mixtral-8x22b": (512, (128, 512), 16),
 }
+# moe_mixtral's window run: prompts of 8,192 and 6,000 tokens padded to
+# 8,192 (two windows of 4,096), a cache of 8,224 (a ring of the window's
+# 4,096 slots), 32 greedy steps, every one past the window
+WIN_S, WIN_LENS, WIN_MAX, WIN_GEN, WIN_SEED = 8192, (8192, 6000), 8224, 32, 23
 # a router-logit gap (the k-th against the (k+1)-th expert's logit) under
 # which two bf16 runs of the same tokens may take different experts: a few
 # bf16 ulps of logits of size 1-3.  The rows (a step's logits of one
@@ -2311,6 +2387,43 @@ def check_api_launches(what, launches, routes, want_launches, want_routes):
                            f"want {want_launches}, {want_routes}")
 
 
+def moe_window_run(name, cfg, model, params):
+    """A prompt past the sliding window: ``WIN_LENS`` prompts padded to
+    ``WIN_S`` into a ring of the window's slots, ``WIN_GEN`` greedy steps
+    on the dense expert scan; flash with the window once a layer in
+    prefill, the ring's insert and the attend-only paged launch once a
+    layer a step, launches equal to the route counters; then held
+    teacher-forced against the ``ref`` route as the phase's first run is
+    (``hold_routed``).  Returns (launches, row)."""
+    torch.cuda.reset_peak_memory_stats()
+    tokens, lens = api_prompts(cfg, None, WIN_S, WIN_LENS, WIN_SEED)
+    api_run(model, params, tokens, lens, WIN_MAX, 1, "auto")  # warm-up
+    reset_launches()
+    reset_routes()
+    got_tok, got, prefill_s, step_s = api_run(model, params, tokens, lens,
+                                              WIN_MAX, WIN_GEN, "auto")
+    launches = read_launches()
+    routes = all_routes()
+    L_, W = cfg.num_layers, min(WIN_MAX, cfg.sliding_window)
+    check_api_launches(f"{name} window", launches, routes, {
+        "paged_attention": L_ * WIN_GEN, "flash_attention": L_,
+        "batched_lora": 0}, {"prefill_flash": L_, "paged": L_ * WIN_GEN})
+    if min(WIN_LENS) <= W or not torch.isfinite(got).all() or got.shape != (
+            WIN_GEN + 1, len(WIN_LENS), cfg.vocab_size):
+        raise RuntimeError(f"{name} window: prompts {WIN_LENS} in a window "
+                           f"of {W}; logits {tuple(got.shape)} finite "
+                           f"{bool(torch.isfinite(got).all())}")
+    _, _, scan_log = logged_run(model, params, tokens, lens, WIN_MAX,
+                                WIN_GEN, "auto", forced=got_tok)
+    want, _, want_log = logged_run(model, params, tokens, lens, WIN_MAX,
+                                   WIN_GEN, "ref", forced=got_tok)
+    vs_ref = hold_routed(got, want, scan_log, want_log, lens, L_,
+                         f"{name} window vs ref")
+    return launches, ring_row(lens, WIN_MAX, W, launches, routes, prefill_s,
+                              step_s, torch.cuda.max_memory_allocated(),
+                              padded_S=WIN_S, vs_ref=vs_ref)
+
+
 def moe_phase(name, smi):
     """``build_model(name)`` at its published widths, depth cut to 2, random
     weights from seed 0 on the card: prefill 4 padded prompts, then 32
@@ -2322,7 +2435,8 @@ def moe_phase(name, smi):
     dispatch against the scan (``hold_routed``: rows whose own token took
     other experts counted, not held, failing past a quarter of the rows or
     at a first flip at a clear gap; rows at a gap under ``ROUTE_EPS``
-    counted).  Returns (launches, row)."""
+    counted).  A config with a sliding window then runs ``moe_window_run``
+    (its row under ``window``).  Returns ({path: launches}, row)."""
     resident = settle()
     cfg = cut_config(name)
     S, prompt_range, seed = MOE_RUNS[name]
@@ -2413,8 +2527,12 @@ def moe_phase(name, smi):
            "dropped_fraction_cf_1.25_per_layer": dropped,
            "max_memory_allocated_bytes": peak,
            "resident_bytes_at_start": resident, "card": smi}
+    paths = {row["phase"]: launches}
+    if cfg.sliding_window:
+        paths[f"{row['phase']}_window"], row["window"] = moe_window_run(
+            name, cfg, model, params)
     emit(row)
-    return launches, row
+    return paths, row
 
 
 def encdec_phase(smi):
@@ -2513,6 +2631,9 @@ HYB_MODEL = "zamba2-2.7b"
 HYB_B, HYB_S, HYB_MAX, HYB_GEN, HYB_SEED = 4, 512, 576, 64, 18
 HYB_PROMPTS = (128, 512)
 RING_S, RING_MAX, RING_GEN, RING_SEED = 4080, 4112, 32, 19
+# then the window run: one prompt of 8,192 tokens (two windows) into the
+# ring of 4,096 slots (a cache of 8,224), 32 steps, every one past it
+HWIN_S, HWIN_MAX, HWIN_GEN, HWIN_SEED = 8192, 8224, 32, 24
 # ssm: xlstm-125m whole (12 blocks); B = 4 prompts padded to 512, 64 steps
 SSM_MODEL = "xlstm-125m"
 SSM_B, SSM_S, SSM_GEN, SSM_SEED = 4, 512, 64, 20
@@ -2546,6 +2667,26 @@ def hybrid_floor(params, cfg, B, positions):
     nbytes += n_super * positions * 2 * cfg.num_kv_heads \
         * cfg.resolved_head_dim * 2
     return nbytes, nbytes / HBM_BW * 1e3
+
+
+def ring_row(lens, max_len, window, launches, routes, prefill_s, step_s,
+             peak, **extra):
+    """The JSON of a run that prefills or decodes past a sliding window:
+    its lengths, how many steps attend past the window (some row's
+    kv_len + 1 over it), launches and routes, prefill and decode speed,
+    its own peak memory."""
+    n = lens.cpu().tolist()
+    past = sum(max(n) + j >= window for j in range(len(step_s)))
+    row = {"prompt_lens": n, "max_len": max_len, "window": window,
+           "decode_steps": len(step_s), "steps_past_window": past,
+           "launches": launches,
+           "routes": {k: v for k, v in routes.items() if v},
+           "prefill_ms": prefill_s * 1e3,
+           "prefill_tok_per_s": sum(n) / prefill_s,
+           "decode_step_wall_p50_s": float(np.percentile(step_s, 50)),
+           "decode_tok_per_s": len(n) * len(step_s) / sum(step_s),
+           "max_memory_allocated_bytes": peak, **extra}
+    return row
 
 
 def api_row(cfg, tokens, lens, max_len, steps, launches, routes, prefill_s,
@@ -2651,6 +2792,38 @@ def hybrid_vs_ref(model, params, tokens, lens, max_len, forced, what):
             "whole_run_token_flips_at_clear_margin": flips}
 
 
+def hybrid_ring_run(model, params, cfg, S, max_len, steps, seed, what):
+    """One prompt of S tokens into a cache of ``min(max_len, window)``
+    slots, then ``steps`` greedy steps: flash once per shared-block
+    application in prefill (with the window), the fused paged step or,
+    once the row has reached the ring's end, its insert and the
+    attend-only launch, once per application a step; held against the
+    ``ref`` route (``hybrid_vs_ref``).  Returns (launches, ``ring_row``
+    with the run's own peak memory)."""
+    n_super = cfg.num_layers // cfg.shared_attn_every
+    torch.cuda.reset_peak_memory_stats()
+    tok, lens = api_prompts(cfg, 1, S, (S, S), seed)
+    api_run(model, params, tok, lens, max_len, 1, "auto")  # warm-up
+    reset_launches()
+    reset_routes()
+    got_tok, logits, prefill_s, step_s = api_run(model, params, tok, lens,
+                                                 max_len, steps, "auto")
+    launches = read_launches()
+    routes = all_routes()
+    check_api_launches(what, launches, routes, {
+        "paged_attention": n_super * steps, "flash_attention": n_super,
+        "batched_lora": 0}, {"prefill_flash": n_super,
+                             "paged": n_super * steps})
+    if not torch.isfinite(logits).all():
+        raise RuntimeError(f"{what}: logits not finite")
+    vs_ref = hybrid_vs_ref(model, params, tok, lens, max_len, got_tok, what)
+    return launches, ring_row(lens, max_len,
+                              min(max_len, cfg.sliding_window), launches,
+                              routes, prefill_s, step_s,
+                              torch.cuda.max_memory_allocated(),
+                              vs_ref=vs_ref)
+
+
 def hybrid_phase(smi):
     """``build_model("zamba2-2.7b")`` whole, random weights from seed 0 on
     the card: prefill 4 padded prompts (the shared block's attention on
@@ -2659,7 +2832,10 @@ def hybrid_phase(smi):
     then the ring run (B = 1, 4,080 prompt tokens, a
     cache of the 4,096-slot window, 32 steps: the fused step until the row
     reaches the window, then the ring's insert and the attend-only launch
-    at hd 80), held the same way.  Returns ({path: launches}, row)."""
+    at hd 80), held the same way; then the window run (B = 1, 8,192
+    prompt tokens, two windows, into the ring: flash with the window 9
+    times, then the ring's insert and the attend-only launch 9 a step, 32
+    steps), held the same way.  Returns ({path: launches}, row)."""
     resident = settle()
     cfg = get_config(HYB_MODEL)
     n_super = cfg.num_layers // cfg.shared_attn_every
@@ -2687,47 +2863,31 @@ def hybrid_phase(smi):
     profile = decode_profile(model, params, tokens, lens, HYB_MAX,
                              got_tok[:, 0],
                              hybrid_floor(params, cfg, HYB_B, positions))
-    # the ring run: decode crosses the window of 4,096
-    r_tok, r_lens = api_prompts(cfg, 1, RING_S, (RING_S, RING_S), RING_SEED)
-    api_run(model, params, r_tok, r_lens, RING_MAX, 1, "auto")
-    reset_launches()
-    reset_routes()
-    ring_tok, ring, ring_prefill_s, ring_step_s = api_run(
-        model, params, r_tok, r_lens, RING_MAX, RING_GEN, "auto")
-    ring_launches = read_launches()
-    ring_routes = all_routes()
-    check_api_launches("hybrid_ring", ring_launches, ring_routes, {
-        "paged_attention": n_super * RING_GEN, "flash_attention": n_super,
-        "batched_lora": 0}, {"prefill_flash": n_super,
-                             "paged": n_super * RING_GEN})
-    W = min(RING_MAX, cfg.sliding_window)
-    past = sum(RING_S + j >= W for j in range(RING_GEN))
-    if not 0 < past < RING_GEN or not torch.isfinite(ring).all():
-        raise RuntimeError(f"hybrid_ring: {past} of {RING_GEN} steps past "
-                           f"the window of {W}; logits finite "
-                           f"{bool(torch.isfinite(ring).all())}")
-    ring_vs_ref = hybrid_vs_ref(model, params, r_tok, r_lens, RING_MAX,
-                                ring_tok, "hybrid_ring")
     peak = torch.cuda.max_memory_allocated()
-    ring_row = {"prompt": RING_S, "max_len": RING_MAX, "window": W,
-                "decode_steps": RING_GEN, "steps_past_window": past,
-                "launches": ring_launches,
-                "routes": {k: v for k, v in ring_routes.items() if v},
-                "prefill_ms": ring_prefill_s * 1e3,
-                "prefill_tok_per_s": RING_S / ring_prefill_s,
-                "decode_step_wall_p50_s": float(np.percentile(ring_step_s,
-                                                              50)),
-                "decode_tok_per_s": RING_GEN / sum(ring_step_s),
-                "vs_ref": ring_vs_ref}
+    # the ring run: decode crosses the window; the window run: a prompt of
+    # two windows, every step past it
+    ring_launches, ring = hybrid_ring_run(model, params, cfg, RING_S,
+                                          RING_MAX, RING_GEN, RING_SEED,
+                                          "hybrid_ring")
+    win_launches, window = hybrid_ring_run(model, params, cfg, HWIN_S,
+                                           HWIN_MAX, HWIN_GEN, HWIN_SEED,
+                                           "hybrid_window")
+    if not 0 < ring["steps_past_window"] < RING_GEN \
+            or window["steps_past_window"] != HWIN_GEN:
+        raise RuntimeError(f"hybrid: {ring['steps_past_window']} of "
+                           f"{RING_GEN} ring steps and "
+                           f"{window['steps_past_window']} of {HWIN_GEN} "
+                           "window steps past the window")
     row = {"phase": "hybrid", **api_row(
         cfg, tokens, lens, HYB_MAX, HYB_GEN, launches, routes, prefill_s,
         step_s, profile, peak, resident, smi,
         shared_attn_applications=n_super,
         params=sum(t.numel() for t in tree_leaves(params)),
-        vs_ref=vs_ref, ring=ring_row)}
+        vs_ref=vs_ref, ring=ring, window=window)}
     emit(row)
     del params
-    return {"hybrid": launches, "hybrid_ring": ring_launches}, row
+    return {"hybrid": launches, "hybrid_ring": ring_launches,
+            "hybrid_window": win_launches}, row
 
 
 def ssm_block_errors(params, cfg, tokens, forced):
@@ -2976,7 +3136,8 @@ def api_cases(cfg):
     plus half the generation in a cache of 576; model_api_int8's prefill;
     cross_size's two models' prefills of 4 x 128; the MoE,
     encoder-decoder, hybrid and stablelm phases' prefills and decodes (hd
-    80 and 160)."""
+    80 and 160), mixtral's and zamba2's with their sliding window, and
+    their window runs' prefill past it and decode over the ring."""
     a, b = cut_config(INT8_MODEL), cut_config(CROSS_B_MODEL)
 
     def heads(c):
@@ -3001,11 +3162,18 @@ def api_cases(cfg):
     for name, (S, prompt_range, seed) in MOE_RUNS.items():
         c, short = cut_config(name), name.split("-")[0]
         flash[f"main_{short}_B{MOE_B}_S{S}"] = (
-            MOE_B, *heads(c), S, c.resolved_head_dim, True)
+            MOE_B, *heads(c), S, c.resolved_head_dim, True, c.sliding_window)
         _, lens = api_prompts(c, MOE_B, S, prompt_range, seed)
         paged[f"main_{short}_page{S + MOE_GEN}"] = (
             MOE_B, *heads(c), c.resolved_head_dim, S + MOE_GEN,
             [int(n) + MOE_GEN // 2 for n in lens.cpu().numpy()])
+        if c.sliding_window:  # the window run: prefill, attend-only decode
+            W, B = min(WIN_MAX, c.sliding_window), len(WIN_LENS)
+            flash[f"main_{short}_window_B{B}_S{WIN_S}_W{W}"] = (
+                B, *heads(c), WIN_S, c.resolved_head_dim, True,
+                c.sliding_window)
+            paged[f"main_{short}_window_page{W}"] = (
+                B, *heads(c), c.resolved_head_dim, W, [W] * B)
     # encdec: the encoder (non-causal) and the decoder's prefill; decode's
     # self-attention (fused) in a cache of 96 and its cross-attention
     # (attend only) over 256 frames at src_len
@@ -3020,15 +3188,19 @@ def api_cases(cfg):
         [int(n) + ENC_GEN // 2 for n in lens.cpu().numpy()])
     paged[f"main_encdec_cross_page{ENC_SRC}"] = (
         ENC_B, *heads(e), e.resolved_head_dim, ENC_SRC, list(ENC_SRC_LEN))
-    # hybrid: zamba2's shared attention (hd 80, G = 1): the prefill and the
-    # ring run's prefill; decode fused in a cache of 576 at the prompts plus
-    # half the generation, and attend only over the ring's 4,096 slots
+    # hybrid: zamba2's shared attention (hd 80, G = 1, its window): the
+    # prefill, the ring run's and the window run's; decode fused in a cache
+    # of 576 at the prompts plus half the generation, and attend only over
+    # the ring's 4,096 slots (the ring and window runs)
     z = get_config(HYB_MODEL)
     hd_z = z.resolved_head_dim
+    Wz = z.sliding_window
     flash[f"main_hybrid_B{HYB_B}_S{HYB_S}"] = (HYB_B, *heads(z), HYB_S, hd_z,
-                                                True)
+                                                True, Wz)
     flash[f"main_hybrid_ring_B1_S{RING_S}"] = (1, *heads(z), RING_S, hd_z,
-                                               True)
+                                               True, Wz)
+    flash[f"main_hybrid_window_B1_S{HWIN_S}_W{Wz}"] = (
+        1, *heads(z), HWIN_S, hd_z, True, Wz)
     _, lens = api_prompts(z, HYB_B, HYB_S, HYB_PROMPTS, HYB_SEED)
     paged[f"main_hybrid_page{HYB_MAX}"] = (
         HYB_B, *heads(z), hd_z, HYB_MAX,
@@ -3879,6 +4051,14 @@ def main():
         "non_causal": (2, H, G_kv, 256, hd, False),
         **main_flash,
     }
+    # the sliding window past itself at the windowed configs' heads: two
+    # windows, and the reference's prefill_32k length (eight)
+    for name, S in (("mixtral-8x22b", 8192), ("zamba2-2.7b", 8192),
+                    ("mixtral-8x22b", 32768)):
+        c = get_config(name)
+        W = c.sliding_window
+        flash_cases[f"window_{name.split('-')[0]}_B1_S{S}_W{W}"] = (
+            1, c.num_heads, c.num_kv_heads, S, c.resolved_head_dim, True, W)
     D, r = cfg.d_model, LORA_RANK
     lora_cases = {  # T, D, F, G, r, bt
         "decode_q": (16, D, H * hd, 1, r, LORA_BT),
@@ -3960,7 +4140,8 @@ def main():
     for name in MOE_RUNS:
         t0 = time.perf_counter()
         phase = f"moe_{name.split('-')[0]}"
-        moe_launches[phase], moe_rows[phase] = moe_phase(name, smi)
+        paths, moe_rows[phase] = moe_phase(name, smi)
+        moe_launches.update(paths)
         phase_s[phase] = time.perf_counter() - t0
     t0 = time.perf_counter()
     enc_launches, enc = encdec_phase(smi)
@@ -4044,9 +4225,13 @@ def main():
           "cross_size_peak_bytes": cross["max_memory_allocated_bytes"],
           **{f"{k}_decode_tok_per_s": v["decode_tok_per_s"]
              for k, v in moe_rows.items()},
+          **{f"{k}_window_decode_tok_per_s": v["window"]["decode_tok_per_s"]
+             for k, v in moe_rows.items() if "window" in v},
           "encdec_decode_tok_per_s": enc["decode_tok_per_s"],
           "hybrid_decode_tok_per_s": hyb["decode_tok_per_s"],
           "hybrid_ring_decode_tok_per_s": hyb["ring"]["decode_tok_per_s"],
+          "hybrid_window_decode_tok_per_s":
+          hyb["window"]["decode_tok_per_s"],
           "ssm_decode_tok_per_s": ssm["decode_tok_per_s"],
           "stablelm_decode_tok_per_s": stable["decode_tok_per_s"],
           "train_step_wall_p50_s": train["train_dense"]["step_wall_p50_s"],

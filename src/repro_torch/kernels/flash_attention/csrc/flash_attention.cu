@@ -1,11 +1,15 @@
-// Flash attention forward (GQA, causal or not) for NVIDIA Hopper (sm_90a),
-// plain C interface.
+// Flash attention forward (GQA, causal or not, with an optional sliding
+// window) for NVIDIA Hopper (sm_90a), plain C interface.
 //
 // Replaces src/repro/kernels/flash_attention/kernel.py:73
 // flash_attention_fwd (the Pallas body _flash_kernel): fp32 online softmax,
 // the scale applied after the q.k dot, masked scores at NEG_INF = -1e30,
 // the denominator clamped at 1e-30, and, when causal, KV tiles that lie
-// wholly above the diagonal skipped.
+// wholly above the diagonal skipped.  The sliding window is the reference
+// prefill's (src/repro/models/layers.py causal_attention(window=W), which
+// the Pallas kernel does not take): with W > 0, causal only, row i keeps
+// key j iff i - W < j <= i, and KV tiles that lie wholly before a query
+// tile's window are skipped too.
 //
 // Layouts: q (B, Hq, S, hd), k/v (B, KVH, S, hd), out (B, Hq, S, hd), each
 // given by its element strides over (batch, head, position) with the last
@@ -20,9 +24,12 @@
 // query tile) walks the KV tiles itself.  A query tile is kRows = 64 query
 // rows drawn from P = 64 / G consecutive positions times all G query heads
 // of the KV head, so every K/V tile staged in shared memory serves the G
-// heads at once.  The block walks fixed 64-key tiles from position 0 and
-// writes its output once.  Tiles are launched heaviest first (the causal
-// diagonal's far end).  The two dtypes take two bodies:
+// heads at once.  The block walks fixed 64-key tiles, from tile 0 or,
+// under a window, from the tile holding its first row's first key
+// (max(0, q0 - W + 1) / 64), to the causal end, and writes its output once.
+// Tiles are launched heaviest first (the causal diagonal's far end); under
+// a window every tile past the first W positions does the same work, so
+// that order is only approximate there.  The two dtypes take two bodies:
 //
 //   bfloat16, tensor cores (the serving dtype).  Four warps, each owning
 //   16 of the 64 query rows.  The q tile is staged once in shared memory
@@ -38,8 +45,9 @@
 //   cp.async (a clock64 breakdown on the card).  A warp loads
 //   its q fragments once; per KV tile it computes its 16 x 64
 //   scores with mma.sync m16n8k16 (bf16 in, fp32 accumulate, K read by
-//   ldmatrix), masks (only tiles that reach past S or a row's position)
-//   and scales them, and runs the online softmax on the accumulator
+//   ldmatrix), masks (only tiles that reach past S or a row's position, or
+//   whose first key lies before the window of the tile's last row) and
+//   scales them, and runs the online softmax on the accumulator
 //   fragments in registers (row max and sum over the quad of lanes that
 //   share a row; exp by the hardware's ex2, __expf).  P goes from the
 //   score registers straight into the A fragments of P @ V, with V read
@@ -58,25 +66,37 @@
 //
 // Any S.  Unlike the Pallas kernel (S % bq == 0), positions at or past S
 // are masked (keys) or not written (queries).  KV tiles are fixed 64-key
-// tiles from position 0 and the query tiles fixed P-position tiles from 0,
-// and a row's products and sums run in an order fixed by those tiles
-// alone: masked keys give p = 0 exactly, and a tile wholly masked for a
-// row leaves its m, l and acc unchanged.  So a prefill of a prefix at its
-// unpadded length gives bitwise the rows that a longer, padded prefill
-// gives for the same positions, in either dtype (the serving engine relies
-// on this when it recomputes a preempted request's KV at readmission).
+// tiles from position 0 and the query tiles fixed P-position tiles from 0;
+// a block's first tile depends on its q0 and W alone, and a row's products
+// and sums run in an order fixed by those tiles alone.  Masked keys give
+// p = 0 exactly: exp(-1e30 - m) underflows to 0 once the row has kept a
+// key, and a row that has kept none yet (m still -1e30, as under a window
+// the first walked tile can be for the rows whose window starts a tile
+// later than the first row's) takes its exponentials against 0 instead of
+// m, so they underflow too (p = 0, alpha = 1).  So a tile wholly masked for
+// a row leaves its m, l and acc unchanged, and a prefill of a prefix at
+// its unpadded length gives bitwise the rows that a longer, padded prefill
+// gives for the same positions, in either dtype and with or without a
+// window (the serving engine relies on this when it recomputes a preempted
+// request's KV at readmission).
 //
-// Bound.  Causal work is about 2 * B * Hq * hd * S * (S + 1) flops (both
-// products, half the score matrix), over 989 TFLOP/s (bf16 tensor cores)
-// or 67 TFLOP/s (fp32 CUDA cores); at B = 4, S = 2048 and TinyLlama's heads
-// (Hq = 32, hd = 64) that is 68.7 GFLOP, 0.069 ms in bf16.  The q/k/v/o
-// bytes (75 MB there, 0.023 ms at 3.35 TB/s) are less, so prefill sizes are
-// bound by operations.  The bf16 body issues mma.sync, whose peak on
-// Hopper is below wgmma's, its softmax runs between the two products on
-// the same warps, and each warp reads the whole K/V tile from shared
-// memory for its 16 rows; wgmma with warp specialisation, where the softmax of one
-// tile overlaps the products of the next, is the next step toward the
-// bound.  The fp32 body is capped by the CUDA cores' 67 TFLOP/s.
+// Bound.  The work is 4 * B * Hq * hd flops per query-key pair kept (both
+// products): S * (S + 1) / 2 pairs when causal, sum_i min(i + 1, W) under a
+// window, over 989 TFLOP/s (bf16 tensor cores) or 67 TFLOP/s (fp32 CUDA
+// cores).  At B = 4, S = 2048 and TinyLlama's heads (Hq = 32, hd = 64) that
+// is 68.7 GFLOP, 0.069 ms in bf16, and the q/k/v/o bytes (75 MB, 0.023 ms
+// at 3.35 TB/s) are less, so prefill sizes are bound by operations.  At
+// B = 1, S = 8192, W = 4096 and mixtral-8x22b's heads (Hq = 48, hd = 128)
+// it is 0.62 TFLOP (25.2 M pairs, 0.75 of causal), 0.625 ms.  Past the
+// first window a block walks at most (W + P - 1) / 64 + 2 tiles of 64 keys
+// for rows that keep W keys each, so the kernel does the window's work,
+// not causal work, up to the masked parts of its edge tiles.  The bf16
+// body issues mma.sync, whose peak on Hopper is below wgmma's, its softmax
+// runs between the two products on the same warps, and each warp reads
+// the whole K/V tile from shared memory for its 16 rows; wgmma with warp
+// specialisation, where the softmax of one tile overlaps the products of
+// the next, is the next step toward the bound.  The fp32 body is capped by
+// the CUDA cores' 67 TFLOP/s.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -158,7 +178,8 @@ __global__ void __launch_bounds__(kThreads)
 flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
                        const T* __restrict__ v, T* __restrict__ out,
                        int S, int G, int P, Strides qs, Strides ks,
-                       Strides vs, Strides os, float sm_scale, int causal) {
+                       Strides vs, Strides os, float sm_scale, int causal,
+                       int window) {
   constexpr int kQP = HD + 1;      // padded pitch of q and k rows
   constexpr int kDPer = HD / 16;   // output dims per thread
   static_assert(HD % 16 == 0, "16 lanes share a row's output dims");
@@ -199,10 +220,12 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
   const int last = min(S - 1, q0 + P - 1);
   const int kv_end = causal ? last + 1 : S;
+  // under a window, from the KV tile that holds the first row's first key
+  const int kv_begin = window ? max(0, q0 - window + 1) / kKeys * kKeys : 0;
   const T* kb = k + b * ks.b + kvh * ks.h;
   const T* vb = v + b * vs.b + kvh * vs.h;
 
-  for (int k0 = 0; k0 < kv_end; k0 += kKeys) {
+  for (int k0 = kv_begin; k0 < kv_end; k0 += kKeys) {
     __syncthreads();  // the previous tile's readers are done
     stage_rows<T, HD>(k_s, kQP, kKeys, [&](int j) -> const T* {
       return k0 + j < S ? kb + (k0 + j) * ks.s : nullptr;
@@ -239,15 +262,19 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
       for (int c = 0; c < kKeysPer; ++c) {
         const int kp = k0 + tx + 16 * c;
-        const bool keep = row_ok[i] && kp < S && (!causal || kp <= row_pos[i]);
+        const bool keep = row_ok[i] && kp < S &&
+                          (!causal || (kp <= row_pos[i] &&
+                                       (!window || kp > row_pos[i] - window)));
         s[i][c] = keep ? s[i][c] * sm_scale : kNegInf;
         mx = fmaxf(mx, s[i][c]);
       }
       const float m_new = fmaxf(m[i], group_max(mx));
+      // no key kept yet: every score is kNegInf, and exp(s - 0) = 0
+      const float m_use = m_new == kNegInf ? 0.f : m_new;
       float sum = 0.f;
 #pragma unroll
       for (int c = 0; c < kKeysPer; ++c) {
-        const float p = expf(s[i][c] - m_new);
+        const float p = expf(s[i][c] - m_use);
         p_s[(ty * kRowsPer + i) * (kKeys + 1) + tx + 16 * c] = p;
         sum += p;
       }
@@ -348,7 +375,8 @@ template <int HD>
 __global__ void flash_attention_tc_kernel(
     const bf16* __restrict__ q, const __grid_constant__ CUtensorMap k_map,
     const __grid_constant__ CUtensorMap v_map, bf16* __restrict__ out, int S,
-    int G, int P, Strides qs, Strides os, float sm_scale, int causal) {
+    int G, int P, Strides qs, Strides os, float sm_scale, int causal,
+    int window) {
   constexpr int kPitch = HD + kPad;      // q tile row pitch
   constexpr int kChunks = HD / 8;        // 16-byte pieces per row
   constexpr int kKS = HD / 16;           // k16 steps of q . k
@@ -377,11 +405,14 @@ __global__ void flash_attention_tc_kernel(
   const int q0 = qt * P;      // first position of the tile
   const int last = min(S - 1, q0 + P - 1);
   const int kv_end = causal ? last + 1 : S;
-  const int n_tiles = (kv_end + kKeys - 1) / kKeys;
+  // under a window, from the KV tile that holds the first row's first key
+  const int t_lo = window ? max(0, q0 - window + 1) / kKeys : 0;
+  const int n_tiles = (kv_end + kKeys - 1) / kKeys - t_lo;
 
-  auto issue = [&](int tile) {  // thread 0 only: K and V tile into its stage
-    unsigned char* st = ring + (tile & 1) * 2 * kTileBytes<HD>;
-    uint64_t* bar = full + (tile & 1);
+  auto issue = [&](int it) {  // thread 0 only: K and V of walk step it
+    const int tile = t_lo + it;
+    unsigned char* st = ring + (it & 1) * 2 * kTileBytes<HD>;
+    uint64_t* bar = full + (it & 1);
     mbar_expect_tx(bar, 2 * kTileBytes<HD>);
 #pragma unroll
     for (int i = 0; i < kBoxes; ++i) {
@@ -462,10 +493,14 @@ __global__ void flash_attention_tc_kernel(
       }
     }
     // online softmax on the fragments, fp32.  A tile below every row's
-    // position and inside S needs no mask: it keeps every key of every
-    // valid row (rows not written see zeros from their zero-filled q).
-    const int k0 = it * kKeys;
-    const bool interior = k0 + kKeys <= S && (!causal || k0 + kKeys - 1 <= q0);
+    // position, inside S and, under a window, inside the window of the
+    // tile's last row (so of every row) needs no mask: it keeps every key
+    // of every valid row (rows not written see zeros from their
+    // zero-filled q).
+    const int k0 = (t_lo + it) * kKeys;
+    const bool interior =
+        k0 + kKeys <= S &&
+        (!causal || (k0 + kKeys - 1 <= q0 && (!window || k0 > last - window)));
     float mx[2] = {kNegInf, kNegInf};
     if (interior) {
 #pragma unroll
@@ -482,12 +517,14 @@ __global__ void flash_attention_tc_kernel(
         for (int e = 0; e < 4; ++e) {
           const int h = e >> 1;
           const int kp = k0 + t * 8 + 2 * tig + (e & 1);
-          const bool keep = ok[h] && kp < S && (!causal || kp <= pos[h]);
+          const bool keep = ok[h] && kp < S &&
+                            (!causal || (kp <= pos[h] &&
+                                         (!window || kp > pos[h] - window)));
           s[t][e] = keep ? s[t][e] * sm_scale : kNegInf;
           mx[h] = fmaxf(mx[h], s[t][e]);
         }
     }
-    float alpha[2], sum[2] = {0.f, 0.f};
+    float alpha[2], m_use[2], sum[2] = {0.f, 0.f};
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
       mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 1));
@@ -495,12 +532,14 @@ __global__ void flash_attention_tc_kernel(
       const float m_new = fmaxf(m[h], mx[h]);
       alpha[h] = __expf(m[h] - m_new);
       m[h] = m_new;
+      // no key kept yet: every score is kNegInf, and exp(s - 0) = 0
+      m_use[h] = m_new == kNegInf ? 0.f : m_new;
     }
 #pragma unroll
     for (int t = 0; t < kNT; ++t)
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
-        s[t][e] = __expf(s[t][e] - m[e >> 1]);
+        s[t][e] = __expf(s[t][e] - m_use[e >> 1]);
         sum[e >> 1] += s[t][e];
       }
 #pragma unroll
@@ -556,7 +595,8 @@ __global__ void flash_attention_tc_kernel(
 template <int HD>
 int launch(int dtype, const void* q, const void* k, const void* v, void* out,
            int B, int KVH, int S, int G, Strides qs, Strides ks, Strides vs,
-           Strides os, float sm_scale, int causal, cudaStream_t stream) {
+           Strides os, float sm_scale, int causal, int window,
+           cudaStream_t stream) {
   const int P = kRows / G;
   const dim3 grid((S + P - 1) / P, KVH, B);
   if (dtype == 1) {
@@ -578,7 +618,7 @@ int launch(int dtype, const void* q, const void* k, const void* v, void* out,
     if (err != cudaSuccess) return (int)err;
     flash_attention_tc_kernel<HD><<<grid, kThreads, smem, stream>>>(
         static_cast<const bf16*>(q), k_map, v_map, static_cast<bf16*>(out), S,
-        G, P, qs, os, sm_scale, causal);
+        G, P, qs, os, sm_scale, causal, window);
     return (int)cudaGetLastError();
   }
   const size_t smem = smem_floats<HD>() * sizeof(float);
@@ -589,30 +629,31 @@ int launch(int dtype, const void* q, const void* k, const void* v, void* out,
   flash_attention_kernel<float, HD><<<grid, kThreads, smem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), static_cast<float*>(out), S, G, P, qs, ks,
-      vs, os, sm_scale, causal);
+      vs, os, sm_scale, causal, window);
   return (int)cudaGetLastError();
 }
 
 int dispatch_hd(int hd, int dtype, const void* q, const void* k,
                 const void* v, void* out, int B, int KVH, int S, int G,
                 Strides qs, Strides ks, Strides vs, Strides os,
-                float sm_scale, int causal, cudaStream_t stream) {
+                float sm_scale, int causal, int window,
+                cudaStream_t stream) {
   switch (hd) {
     case 32:
       return launch<32>(dtype, q, k, v, out, B, KVH, S, G, qs, ks, vs, os,
-                        sm_scale, causal, stream);
+                        sm_scale, causal, window, stream);
     case 64:
       return launch<64>(dtype, q, k, v, out, B, KVH, S, G, qs, ks, vs, os,
-                        sm_scale, causal, stream);
+                        sm_scale, causal, window, stream);
     case 80:
       return launch<80>(dtype, q, k, v, out, B, KVH, S, G, qs, ks, vs, os,
-                        sm_scale, causal, stream);
+                        sm_scale, causal, window, stream);
     case 128:
       return launch<128>(dtype, q, k, v, out, B, KVH, S, G, qs, ks, vs, os,
-                         sm_scale, causal, stream);
+                         sm_scale, causal, window, stream);
     case 160:
       return launch<160>(dtype, q, k, v, out, B, KVH, S, G, qs, ks, vs, os,
-                         sm_scale, causal, stream);
+                         sm_scale, causal, window, stream);
     default:
       return (int)cudaErrorInvalidValue;
   }
@@ -623,7 +664,8 @@ int dispatch_hd(int hd, int dtype, const void* q, const void* k,
 extern "C" {
 
 // dtype: 0 = float32, 1 = bfloat16.  Strides are in elements, over
-// (batch, head, position); the head dimension is contiguous.  Returns
+// (batch, head, position); the head dimension is contiguous.  window: 0 for
+// none, else W > 0 with causal (row i keeps keys i - W < j <= i).  Returns
 // cudaGetLastError() after the launch, or cudaErrorInvalidValue for a
 // shape or type the kernel does not take (the Python wrapper checks these
 // first and raises).
@@ -633,9 +675,10 @@ int flash_attention_fwd(const void* q, const void* k, const void* v,
                         long long ksb, long long ksh, long long kss,
                         long long vsb, long long vsh, long long vss,
                         long long osb, long long osh, long long oss,
-                        float sm_scale, int causal, int dtype, void* stream) {
+                        float sm_scale, int causal, int window, int dtype,
+                        void* stream) {
   if (B <= 0 || S <= 0 || KVH <= 0 || Hq % KVH != 0 || Hq / KVH > kRows ||
-      B > 65535 || KVH > 65535) {
+      B > 65535 || KVH > 65535 || window < 0 || (window > 0 && !causal)) {
     return (int)cudaErrorInvalidValue;
   }
   const int G = Hq / KVH;
@@ -643,7 +686,8 @@ int flash_attention_fwd(const void* q, const void* k, const void* v,
       os{osb, osh, oss};
   if (dtype != 0 && dtype != 1) return (int)cudaErrorInvalidValue;
   return dispatch_hd(hd, dtype, q, k, v, out, B, KVH, S, G, qs, ks, vs, os,
-                     sm_scale, causal, static_cast<cudaStream_t>(stream));
+                     sm_scale, causal, window,
+                     static_cast<cudaStream_t>(stream));
 }
 
 }  // extern "C"

@@ -14,6 +14,7 @@ from pathlib import Path
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.kernels.flash_attention.ref import check_window
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "flash_attention.cu"
 HEAD_DIMS = (32, 64, 80, 128, 160)
@@ -34,7 +35,7 @@ def _bind(lib: ctypes.CDLL) -> None:
     fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 5
                    + [ctypes.c_longlong] * 12
                    + [ctypes.c_float, ctypes.c_int, ctypes.c_int,
-                      ctypes.c_void_p])
+                      ctypes.c_int, ctypes.c_void_p])
     fn.restype = ctypes.c_int
 
 
@@ -75,11 +76,14 @@ def check_inputs(q, k, v) -> None:
                              f"{t.stride()})")
 
 
-def flash_attention_cuda(q, k, v, *, causal: bool = True, sm_scale=None):
+def flash_attention_cuda(q, k, v, *, causal: bool = True, sm_scale=None,
+                         window: int = 0):
     """Launch the kernel on PyTorch's current stream.  q (B, Hq, S, hd) and
     k/v (B, KVH, S, hd) may be strided views; the output has q's shape,
-    dtype and memory layout (``torch.empty_like``)."""
+    dtype and memory layout (``torch.empty_like``).  ``window`` as in
+    ``check_window``."""
     global launches
+    check_window(causal, window)
     check_inputs(q, k, v)
     B, Hq, S, hd = q.shape
     KVH = k.shape[1]
@@ -91,7 +95,7 @@ def flash_attention_cuda(q, k, v, *, causal: bool = True, sm_scale=None):
     rc = load().flash_attention_fwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
         B, Hq, KVH, S, hd, *strides, float(sm_scale), int(bool(causal)),
-        _DTYPES[q.dtype], stream)
+        int(window), _DTYPES[q.dtype], stream)
     if rc != 0:
         raise RuntimeError("flash_attention kernel launch failed: CUDA "
                            f"error {rc}")

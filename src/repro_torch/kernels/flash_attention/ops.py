@@ -18,17 +18,19 @@ IMPLS = ("auto", "ref", "cuda")
 
 
 def flash_attention(q, k, v, *, causal: bool = True, sm_scale=None,
-                    impl: str = "auto"):
+                    window: int = 0, impl: str = "auto"):
     """Returns (B, Hq, S, hd) in q's dtype (and, from the kernel, in q's
-    memory layout)."""
+    memory layout).  ``window`` > 0 (causal only): row i attends to keys
+    i - window < j <= i."""
     if impl not in IMPLS:
         raise ValueError(f"flash_attention impl {impl!r}; one of {IMPLS}")
     if impl == "auto":
         impl = "cuda" if q.is_cuda else "ref"
     if impl == "ref":
-        return flash_attention_ref(q, k, v, causal=causal, sm_scale=sm_scale)
+        return flash_attention_ref(q, k, v, causal=causal, sm_scale=sm_scale,
+                                   window=window)
     if not q.is_cuda:
         raise ValueError("flash_attention impl='cuda' needs CUDA tensors; "
                          f"got q on {q.device}")
     return kernel.flash_attention_cuda(q, k, v, causal=causal,
-                                       sm_scale=sm_scale)
+                                       sm_scale=sm_scale, window=window)

@@ -14,8 +14,8 @@ The Zamba2 shared transformer block is one set of weights applied every
 ``shared_attn_every`` mamba layers; each application has its own KV cache
 slot ``layer_idx`` in ``cache["attn"]``, stacked ``(n_super, B, W, KVH,
 hd)``.  Its attention takes the dense family's routes as they are
-(``models.transformer``): flash in prefill while the prompt fits the
-sliding window (past it the kernel routes raise), and in decode one
+(``models.transformer``): flash in prefill with the sliding window, at
+any prompt length, and in decode one
 ``DecodeAttention`` plan a step over ``cache["attn"]``, the fused paged
 step while every row is inside the ring, else the ring's insert and the
 attend-only launch.

@@ -22,7 +22,7 @@ choice itself is not differentiated.
 The expert products are ``torch.matmul``: the reference computes them in
 ``jnp`` outside any Pallas kernel.  Attention, the KV cache and their
 routes are the dense family's as they are (``models.transformer``): flash
-in prefill (a sliding window while the prompt fits in it), the paged
+in prefill (with the sliding window, at any prompt length), the paged
 kernel in decode (a sliding window's ring buffer too).
 """
 from __future__ import annotations

@@ -19,7 +19,8 @@ attention).  ``ref`` runs the kernels' plain versions on any device;
 ``auto`` on a CPU tensor runs the reference's plain code.  An int8 cache
 takes the reference's plain decode route whatever ``attn_impl`` says: the
 reference has no kernel for it.  A sliding window's prefill runs flash
-while the prompt fits the window (the window then masks nothing); its
+with the window (row i keeps keys i - W < j <= i, as the reference's
+``causal_attention(window=W)``), at any prompt length; its
 decode runs the paged kernel over the ring buffer's slots (the cache holds
 at most the window, and the reference's decode attends over all of its
 ``min(kv_len + 1, S)`` written slots, in whatever order the ring left
@@ -177,18 +178,12 @@ def _kernel_impl(x, attn_impl: str) -> Optional[str]:
 
 def prefill_route(cfg: ModelConfig, q, attn_impl: str) -> str:
     """The prefill attention route for q (B, S, H, hd): a key of
-    ``PREFILL_ROUTES``.  A sliding window masks nothing while S fits in it
-    (key j is kept when j > i - W, and i - j < S <= W), so flash computes
-    the reference's function exactly there; past it, and at a head dim the
-    kernel lacks, the kernel routes raise before any launch."""
+    ``PREFILL_ROUTES``.  Flash takes a sliding window at any S; at a head
+    dim the kernel lacks, the ``cuda`` route raises before any launch."""
     impl = _kernel_impl(q, attn_impl)
     if impl is None:
         return "plain"
-    S, hd = q.shape[1], q.shape[-1]
-    if cfg.sliding_window and S > cfg.sliding_window:
-        raise NotImplementedError(
-            f"the flash-attention kernel has no sliding window (a prompt of "
-            f"{S} tokens is longer than the window of {cfg.sliding_window})")
+    hd = q.shape[-1]
     if impl == "cuda" and hd not in fa_kernel.HEAD_DIMS:
         raise NotImplementedError(
             f"the flash-attention kernel has no head dim {hd} (it takes "
@@ -221,6 +216,7 @@ def prefill_attention(q, k, v, cfg: ModelConfig, attn_impl: str, *,
         pl, mesh, (q, k, v) = head_shards(q, k, v)
     o = flash_attention(q.transpose(1, 2), k.transpose(1, 2),
                         v.transpose(1, 2), causal=causal,
+                        window=cfg.sliding_window if causal else 0,
                         impl="cuda" if route == "flash" else "ref")
     o = o.transpose(1, 2)
     if dt:

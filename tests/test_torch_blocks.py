@@ -434,9 +434,7 @@ def test_lora_scaling_is_read_once_as_a_float(zoos):
 
 
 def test_kernel_routes_refuse_what_the_kernels_do_not_take(zoos):
-    import dataclasses
-
-    from repro_torch.core.blocks import Block, block_prefill_raw
+    from repro_torch.core.blocks import block_prefill_raw
 
     _, pz = zoos
     (tb, ta) = _steps(pz, "app-lora")[3]
@@ -447,10 +445,33 @@ def test_kernel_routes_refuse_what_the_kernels_do_not_take(zoos):
         block_prefill_raw(tb, x, attn_impl="pallas")
     with pytest.raises(NotImplementedError, match="one LoRA"):
         block_prefill_raw(tb, x, adapters=ta * 2, attn_impl="ref")
+
+
+def test_windowed_block_prefill_on_ref_equals_the_plain_code(zoos):
+    """A block whose config has a sliding window (4), prefilled past it (9
+    tokens): the ``ref`` route (flash's plain version with the window)
+    equals the plain code (``auto`` on the CPU: the reference's windowed
+    attention), output and raw K/V in fp32 (2e-5), and differs from the
+    same block without the window."""
+    import dataclasses
+
+    from repro_torch.core.blocks import Block, block_prefill_raw
+
+    _, pz = zoos
+    (tb, _) = _steps(pz, "app-lora")[3]
     windowed = Block(**{f.name: getattr(tb, f.name)
                         for f in dataclasses.fields(Block)
                         if not f.name.startswith("_")})
     windowed.cfg = dataclasses.replace(tb.cfg, sliding_window=4)
-    with pytest.raises(NotImplementedError, match="sliding window"):
-        block_prefill_raw(windowed, x, attn_impl="ref")
-    block_prefill_raw(windowed, x)  # auto on the CPU: the plain code
+    rng = np.random.RandomState(21)
+    x = torch.from_numpy(rng.standard_normal((2, 9, tb.d_in))
+                         .astype(np.float32))
+    got = block_prefill_raw(windowed, x, attn_impl="ref")
+    want = block_prefill_raw(windowed, x)  # auto on the CPU: the plain code
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a, b, rtol=2e-5, atol=2e-5)
+    full = block_prefill_raw(tb, x, attn_impl="ref")[0]
+    assert not torch.allclose(full[:, 4:], got[0][:, 4:], rtol=2e-5,
+                              atol=2e-5)
+    torch.testing.assert_close(full[:, :4], got[0][:, :4], rtol=2e-5,
+                               atol=2e-5)  # inside the window: no mask

@@ -735,11 +735,11 @@ def test_paged_attend_only_over_a_cross_cache(card, heads, dtype):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-def test_windowed_prefill_fits_the_window_on_flash(card, dtype):
-    """A sliding-window config's prefill with the prompt inside the window
-    runs the flash kernel (counted), against its plain version, which
-    equals the windowed reference there; past the window it raises before
-    any launch."""
+def test_windowed_prefill_past_the_window_on_flash(card, dtype):
+    """A sliding-window config's prefill inside its window (32 tokens) and
+    past it (69 tokens in 32) runs the flash kernel with the window, once a
+    layer (counted), against its plain version; that plain version equals
+    the windowed reference past the window too (fp32)."""
     from repro_torch.configs import get_reduced_config
     from repro_torch.models import layers as L
     from repro_torch.models import transformer as T
@@ -749,24 +749,73 @@ def test_windowed_prefill_fits_the_window_on_flash(card, dtype):
         d_model=256, num_heads=4, num_kv_heads=2, d_ff=256, sliding_window=32)
     model = build_model(cfg, compute_dtype=getattr(torch, dtype))
     params = model.init(torch.Generator(card).manual_seed(0))
-    tokens = torch.randint(0, cfg.vocab_size, (2, 32), device=card,
-                           dtype=torch.int32)
+    for S in (32, 69):
+        tokens = torch.randint(0, cfg.vocab_size, (2, S), device=card,
+                               dtype=torch.int32)
+        before = flash_kernel.launches
+        got = model.prefill(params, {"tokens": tokens}, attn_impl="cuda")[0]
+        want = model.prefill(params, {"tokens": tokens}, attn_impl="ref")[0]
+        torch.cuda.synchronize()
+        assert flash_kernel.launches == before + cfg.num_layers
+        torch.testing.assert_close(got.float(), want.float(), **TOL[dtype])
+        q, k, v = (x.transpose(1, 2) for x in _flash_inputs(
+            2, 4, 2, S, 64, torch.float32, card))
+        torch.testing.assert_close(
+            T.prefill_attention(q, k, v, cfg, "ref"),
+            L.causal_attention(q, k, v, chunk=cfg.attn_chunk, window=32),
+            **TOL["float32"])
+
+
+# S, W: a window of one tile, windows that start mid-tile (100, 40), and
+# the long path's lengths
+FLASH_WINDOWS = [(300, 64), (300, 100), (129, 40), (2048, 700)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("G", [1, 6])
+@pytest.mark.parametrize("hd", [64, 80, 128])
+@pytest.mark.parametrize("S,W", FLASH_WINDOWS)
+def test_flash_attention_kernel_window_matches_ref(card, S, W, hd, G, dtype):
+    """The kernel with a sliding window past it against the windowed plain
+    version: the tolerances and, in bf16, two bf16 ulps (P kept as a bf16
+    pair, one rounding); one launch a call; a window of S or more is
+    bitwise no window."""
+    q, k, v = _flash_inputs(1, 2 * G, 2, S, hd, getattr(torch, dtype), card,
+                            seed=S + W + hd + G)
     before = flash_kernel.launches
-    got = model.prefill(params, {"tokens": tokens}, attn_impl="cuda")[0]
-    want = model.prefill(params, {"tokens": tokens}, attn_impl="ref")[0]
+    got = flash_attention(q, k, v, window=W)  # auto: CUDA -> kernel
     torch.cuda.synchronize()
-    assert flash_kernel.launches == before + cfg.num_layers
+    assert flash_kernel.launches == before + 1
+    want = flash_attention_ref(q, k, v, window=W)
+    assert got.dtype == q.dtype and got.shape == q.shape
     torch.testing.assert_close(got.float(), want.float(), **TOL[dtype])
-    q, k, v = (x.transpose(1, 2) for x in _flash_inputs(
-        2, 4, 2, 32, 64, torch.float32, card))
-    torch.testing.assert_close(
-        T.prefill_attention(q, k, v, cfg, "ref"),
-        L.causal_attention(q, k, v, chunk=cfg.attn_chunk, window=32),
-        **TOL["float32"])
-    with pytest.raises(NotImplementedError, match="sliding window"):
-        model.prefill(params, {"tokens": torch.cat([tokens, tokens], 1)},
-                      attn_impl="cuda")
-    assert flash_kernel.launches == before + cfg.num_layers
+    if dtype == "bfloat16":
+        torch.testing.assert_close(got.float(), want.float(),
+                                   rtol=2.0 ** -6, atol=1e-5)
+    torch.testing.assert_close(flash_attention(q, k, v, window=S),
+                               flash_attention(q, k, v), rtol=0, atol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("G", [1, 4])
+def test_flash_attention_kernel_window_prefix_is_bitwise(card, G, dtype):
+    """The prefix property under a window that starts mid-tile (100): a
+    prefix alone equals the same rows of a longer call bit for bit, and
+    the wrapper refuses a negative window and a window without causal
+    before any launch."""
+    q, k, v = _flash_inputs(2, 4 * G, 4, 300, 64, getattr(torch, dtype), card)
+    full = flash_attention(q, k, v, window=100, impl="cuda")
+    for n in (1, 63, 65, 101, 164, 200, 299):
+        part = flash_attention(q[:, :, :n], k[:, :, :n], v[:, :, :n],
+                               window=100, impl="cuda")
+        torch.testing.assert_close(part, full[:, :, :n], rtol=0, atol=0)
+    before = flash_kernel.launches
+    for kw in ({"window": -1}, {"window": 100, "causal": False}):
+        with pytest.raises(ValueError, match="window"):
+            flash_attention(q, k, v, impl="cuda", **kw)
+    assert flash_kernel.launches == before
 
 
 @pytest.mark.cuda

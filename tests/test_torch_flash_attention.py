@@ -5,8 +5,9 @@ against JAX's Pallas kernel in interpret mode and its jnp oracle at the
 shapes of tests/test_kernels.py, causal and not, in fp32 (2e-5) and bf16
 (2e-2); at ragged S (which the Pallas kernel does not take) against the
 jnp oracle; and against ``layers.causal_attention``, the attention the
-JAX serving path's prefill runs.  The CUDA kernel itself runs only on the
-card: its tests are in tests/test_torch_cuda_kernels.py.
+JAX serving path's prefill runs, with and without its sliding window
+(which the Pallas kernel does not take).  The CUDA kernel itself runs only
+on the card: its tests are in tests/test_torch_cuda_kernels.py.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -108,4 +109,48 @@ def test_cuda_impl_on_cpu_raises_and_launches_nothing():
     with pytest.raises(ValueError):
         flash_attention(q, k, v, impl="pallas")
     flash_attention(q, k, v)  # auto on the CPU: the plain version
+    assert t_kernel.launches == before
+
+
+# S, W, G, hd: inside the window, one past it, past it twice and off the
+# 64-key tiles, a window that is not a multiple of 64, and rows in more
+# than one of the plain version's query chunks (1,024 rows)
+WINDOW_CASES = [(40, 64, 1, 64), (64, 64, 6, 80), (65, 64, 6, 80),
+                (65, 64, 1, 128), (145, 64, 1, 128), (145, 64, 6, 64),
+                (97, 40, 6, 128), (200, 40, 1, 80), (41, 40, 6, 64),
+                (1100, 300, 1, 64)]
+
+
+@pytest.mark.parametrize("S,W,G,hd", WINDOW_CASES)
+def test_windowed_ref_matches_jax_causal_attention(S, W, G, hd):
+    """``window=W``: row i keeps keys i - W < j <= i, as the JAX prefill's
+    ``layers.causal_attention(window=W)`` (fp32, query chunk 32), within
+    2e-5; the plain version's chunks hold only each chunk's window span."""
+    from repro.models.layers import causal_attention
+
+    q, k, v = make_inputs(1, 2 * G, 2, S, hd, seed=S + W + G + hd)
+    (jq, jk, jv), (tq, tk, tv) = _both(
+        [a.transpose(0, 2, 1, 3).copy() for a in (q, k, v)], "float32")
+    want = causal_attention(jq, jk, jv, chunk=32, window=W)
+    got = flash_attention(tq.transpose(1, 2), tk.transpose(1, 2),
+                          tv.transpose(1, 2), window=W,
+                          impl="ref").transpose(1, 2)
+    _close(got, want, "float32")
+    if S <= W:  # the window masks nothing there
+        _close(got, causal_attention(jq, jk, jv, chunk=32), "float32")
+
+
+@pytest.mark.parametrize("causal,window,match", [
+    (False, 8, "causal"), (True, -1, "window -1")])
+def test_window_refusals(causal, window, match):
+    """A window without causal (the reference has none) and a negative
+    window raise on the plain version and in the kernel's wrapper, before
+    any launch."""
+    q, k, v = (torch.from_numpy(a) for a in make_inputs(1, 4, 2, 16, 32))
+    before = t_kernel.launches
+    for fn in (flash_attention_ref,
+               lambda *a, **kw: flash_attention(*a, **kw, impl="ref"),
+               t_kernel.flash_attention_cuda):
+        with pytest.raises(ValueError, match=match):
+            fn(q, k, v, causal=causal, window=window)
     assert t_kernel.launches == before

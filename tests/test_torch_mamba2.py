@@ -8,11 +8,11 @@ The reference's fp32 side runs in a subprocess with
 ``zamba_prefill`` on padded prompts and then teacher-forced
 ``zamba_decode_step``s.  The cases: S a multiple of the chunk (16) and not
 (13), the latter ragged; a prompt past the window (40 in 32: its K/V kept
-at their ring slots, prefill on the plain route); a prompt inside the
-window (28) whose decode crosses the ring of 32 (the fused step, then the
-ring's insert and the attend-only route).  The port gets the trees through
-``params_from_numpy``.  Its bf16 side runs against this process's JAX,
-which computes in bf16.
+at their ring slots, prefill with the window on every route); a prompt
+inside the window (28) whose decode crosses the ring of 32 (the fused
+step, then the ring's insert and the attend-only route).  The port gets
+the trees through ``params_from_numpy``.  Its bf16 side runs against
+this process's JAX, which computes in bf16.
 
 Tolerances: fp32 at rtol/atol 2e-5 (``tests/test_kernels.py``) for logits
 and every cache tensor, the SSM state included; bf16 at the tolerance
@@ -261,16 +261,16 @@ def test_zamba_matches_jax_fp32(ref, case, attn_impl):
     every teacher-forced decode step's logits and the final cache, on the
     plain route (``auto`` on the CPU) and the kernels' plain versions
     (``ref``); the routes counted.  The window case's prompt is past the
-    window, which flash does not take: it prefills on the plain route."""
+    window: flash's plain version takes the window, as the plain route
+    does."""
     cfg = get_reduced_config(NAME)
     batch, max_len, steps = case_inputs(case)
     r = ref[case]
     model = build_model(cfg, compute_dtype=torch.float32)
     params = params_from_numpy(cfg, ref["params"], "cpu")
-    prefill_impl = "auto" if case == "window" else attn_impl
     _reset_routes()
     logits, cache, _ = model.prefill(params, _torch_batch(batch),
-                                     max_len=max_len, attn_impl=prefill_impl)
+                                     max_len=max_len, attn_impl=attn_impl)
     np.testing.assert_allclose(logits.numpy(), r["logits"], **TOL["float32"])
     _check_tree(cache, r["cache"], "prefill")
     for j, st in enumerate(steps):
@@ -280,7 +280,7 @@ def test_zamba_matches_jax_fp32(ref, case, attn_impl):
                                    **TOL["float32"], err_msg=f"step {j}")
     _check_tree(cache, r["final_cache"], "final")
     n_super = cfg.num_layers // cfg.shared_attn_every
-    route = "plain" if prefill_impl == "auto" else "flash_ref"
+    route = "plain" if attn_impl == "auto" else "flash_ref"
     assert T.PREFILL_ROUTES == {k: n_super * (k == route)
                                 for k in T.PREFILL_ROUTES}
     route = "plain" if attn_impl == "auto" else "paged_ref"
@@ -339,16 +339,31 @@ def test_ragged_rows_absorb_their_padding(ref):
             assert same == (n == batch["tokens"].shape[1]), (name, b, n)
 
 
-def test_window_prefill_past_the_window_raises_on_kernel_routes(ref):
-    """A prompt past the window: the kernel routes refuse it before any
-    launch (the plain route is held above)."""
+def test_window_prefill_past_the_window_on_kernel_routes(ref):
+    """A prompt past the window (40 in 32) on the kernel routes: ``ref``
+    runs flash's plain version with the window, once per application of
+    the shared block, and equals the reference's prefill (logits and the
+    ring cache, fp32 2e-5) and the plain route's; ``cuda`` routes a
+    prompt past the published config's window to the kernel."""
     cfg = get_reduced_config(NAME)
-    batch, _, _ = case_inputs("window")
+    batch, max_len, _ = case_inputs("window")
+    r = ref["window"]
     params = params_from_numpy(cfg, ref["params"], "cpu")
-    for impl in ("ref", "cuda"):
-        with pytest.raises(NotImplementedError, match="sliding window"):
-            build_model(cfg, compute_dtype=torch.float32).prefill(
-                params, _torch_batch(batch), attn_impl=impl)
+    model = build_model(cfg, compute_dtype=torch.float32)
+    _reset_routes()
+    logits, cache, _ = model.prefill(params, _torch_batch(batch),
+                                     max_len=max_len, attn_impl="ref")
+    n_super = cfg.num_layers // cfg.shared_attn_every
+    assert T.PREFILL_ROUTES["flash_ref"] == n_super
+    np.testing.assert_allclose(logits.numpy(), r["logits"], **TOL["float32"])
+    _check_tree(cache, r["cache"], "prefill")
+    plain, _, _ = model.prefill(params, _torch_batch(batch), max_len=max_len)
+    np.testing.assert_allclose(logits.numpy(), plain.numpy(),
+                               **TOL["float32"])
+    # the published config, past its window at its head dim: the kernel
+    full = get_config(NAME)
+    q = torch.zeros(1, full.sliding_window + 1, 1, full.resolved_head_dim)
+    assert T.prefill_route(full, q, "cuda") == "flash"
 
 
 def _to_torch(a):

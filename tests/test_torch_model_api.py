@@ -369,17 +369,16 @@ def test_prefill_and_decode_match_jax_fp32(ref, case, attn_impl):
     """fp32: prefill logits and cache, then each decode step's logits and
     the final cache, on the plain route (``auto`` on the CPU) and on the
     kernels' plain versions (``ref``: flash's, and paged's over the cache's
-    one-page-per-sequence view).  The window case's prompt is longer than
-    the window, which flash does not take (ROADMAP.md §2): it prefills on
-    the plain route, then decodes its ring buffer on ``attn_impl``."""
+    one-page-per-sequence view).  The window case's prompt (20 tokens) is
+    longer than its window (8): it prefills with the window on
+    ``attn_impl`` like the others, then decodes its ring buffer."""
     cfg, batch, max_len, steps = case_inputs(case)
     r = ref[case]
     model = build_model(cfg, compute_dtype=torch.float32)
     params = params_from_numpy(cfg, r["params"], "cpu")
     tb = _torch_batch(batch)
-    logits, cache, plens = model.prefill(
-        params, tb, max_len=max_len,
-        attn_impl="auto" if case == "window" else attn_impl)
+    logits, cache, plens = model.prefill(params, tb, max_len=max_len,
+                                         attn_impl=attn_impl)
     np.testing.assert_allclose(logits.numpy(), r["logits"], **TOL["float32"])
     np.testing.assert_array_equal(plens.numpy(), r["prompt_lens"])
     raw = (_raw_prefill_kv(params, cfg, tb, max_len)
@@ -583,8 +582,8 @@ def test_decode_attention_matches_jax_fp32(window, kv_chunk):
 def test_kernel_gaps_raise_not_implemented():
     """Under the kernel route: head dims 80 (zamba2's shared attention) and
     160 (stablelm-12b) route to the kernels; a head dim the kernels still
-    lack (96) and a prompt longer than a sliding window have no kernel;
-    the route is chosen before any launch."""
+    lack (96) has no kernel; a prompt longer than a sliding window runs
+    flash with the window; the route is chosen before any launch."""
     stablelm = get_config("stablelm-12b")
     zamba = get_config("zamba2-2.7b")
     assert (stablelm.resolved_head_dim, zamba.resolved_head_dim) == (160, 80)
@@ -602,10 +601,8 @@ def test_kernel_gaps_raise_not_implemented():
         T.prefill_attention(q, q, q, missing, "cuda")
     windowed = get_config("tinyllama-1.1b").replace(sliding_window=64)
     q = torch.zeros(1, 65, 2, 64)  # S = 65 > the window of 64
-    for impl in ("cuda", "ref"):
-        with pytest.raises(NotImplementedError, match="sliding window"):
-            T.prefill_attention(q, q, q, windowed, impl)
-    # S <= window: the window masks nothing, flash computes it
+    assert T.prefill_route(windowed, q, "cuda") == "flash"
+    assert T.prefill_route(windowed, q, "ref") == "flash_ref"
     assert T.prefill_route(windowed, q[:, :64], "cuda") == "flash"
     assert T.prefill_route(windowed, q[:, :2], "ref") == "flash_ref"
     assert T.prefill_route(windowed, q, "auto") == "plain"  # a CPU tensor
@@ -655,10 +652,11 @@ def test_window_decode_on_paged_ref_equals_the_plain_ring():
                                    **TOL["float32"])
 
 
-@pytest.mark.parametrize("S", [1, 7, 8])
+@pytest.mark.parametrize("S", [1, 7, 8, 9, 20, 33])
 def test_window_prefill_on_flash_equals_the_windowed_reference(S):
-    """At S <= window (8) the ``ref`` route (flash's plain version, no
-    window) equals ``layers.causal_attention(window=8)``, fp32 2e-5."""
+    """Inside the window (8) and past it, the ``ref`` route (flash's plain
+    version, handed ``cfg.sliding_window``) equals
+    ``layers.causal_attention(window=8)``, fp32 2e-5."""
     cfg = get_reduced_config("tinyllama-1.1b").replace(sliding_window=8)
     rng = np.random.RandomState(12)
     q = torch.from_numpy(rng.standard_normal((2, S, 4, 16)).astype(np.float32))

@@ -301,23 +301,22 @@ FP32_RUNS = [(c, impl) for c in CASES for impl in ("auto", "ref")]
 def test_moe_matches_jax_fp32(ref, case, attn_impl):
     """fp32: prefill logits and cache, each teacher-forced decode step's
     logits and the final cache; the prefill and decode routes counted.
-    The window case's prompt is longer than the window, which flash does
-    not take: it prefills on the plain route, then decodes its ring buffer
-    (every row past the window: the ring's insert and the attend-only
-    paged route under ``ref``) on ``attn_impl``."""
+    The window case's prompt is longer than the window: it prefills with
+    the window on ``attn_impl`` (flash's plain version takes it under
+    ``ref``), then decodes its ring buffer (every row past the window: the
+    ring's insert and the attend-only paged route under ``ref``)."""
     name = case.split(":")[0]
     cfg = case_config(case)
     batch, max_len, steps = case_inputs(case)
     r = ref[case]
     model = build_model(cfg, compute_dtype=torch.float32)
     params = params_from_numpy(cfg, ref["params"][name], "cpu")
-    prefill_impl = "auto" if cfg.sliding_window else attn_impl
     _reset_routes()
     M.margin_log = []
     try:
         logits, cache, _ = model.prefill(params, _torch_batch(batch),
                                          max_len=max_len,
-                                         attn_impl=prefill_impl)
+                                         attn_impl=attn_impl)
         np.testing.assert_allclose(logits.numpy(), r["logits"],
                                    **TOL["float32"])
         _check_cache(cache, r["cache"], cfg)
@@ -333,22 +332,38 @@ def test_moe_matches_jax_fp32(ref, case, attn_impl):
     assert gap > FP32_MIN_GAP, gap
     n = cfg.num_layers
     assert T.PREFILL_ROUTES == {
-        k: n * (k == ("plain" if prefill_impl == "auto" else "flash_ref"))
+        k: n * (k == ("plain" if attn_impl == "auto" else "flash_ref"))
         for k in T.PREFILL_ROUTES}
     route = "plain" if attn_impl == "auto" else "paged_ref"
     assert T.DECODE_ROUTES == {k: n * len(steps) * (k == route)
                                for k in T.DECODE_ROUTES}
 
 
-def test_window_prefill_past_the_window_raises_on_kernel_routes(ref):
-    """mixtral's prompt of 40 tokens in a window of 32: the kernel routes
-    refuse it before any launch (the plain route is held above)."""
-    cfg = case_config("mixtral-8x22b:window")
-    batch, _, _ = case_inputs("mixtral-8x22b:window")
+def test_window_prefill_past_the_window_on_kernel_routes(ref):
+    """mixtral's prompt of 40 tokens in a window of 32 on the kernel
+    routes: ``ref`` runs flash's plain version with the window, once a
+    layer, and equals the reference's prefill (logits and the ring cache,
+    fp32 2e-5) and the plain route's; ``cuda`` routes a prompt past the
+    published config's window to the kernel."""
+    case = "mixtral-8x22b:window"
+    cfg = case_config(case)
+    batch, max_len, _ = case_inputs(case)
+    r = ref[case]
     params = params_from_numpy(cfg, ref["params"]["mixtral-8x22b"], "cpu")
-    with pytest.raises(NotImplementedError, match="sliding window"):
-        build_model(cfg, compute_dtype=torch.float32).prefill(
-            params, _torch_batch(batch), attn_impl="ref")
+    model = build_model(cfg, compute_dtype=torch.float32)
+    _reset_routes()
+    logits, cache, _ = model.prefill(params, _torch_batch(batch),
+                                     max_len=max_len, attn_impl="ref")
+    assert T.PREFILL_ROUTES["flash_ref"] == cfg.num_layers
+    np.testing.assert_allclose(logits.numpy(), r["logits"], **TOL["float32"])
+    _check_cache(cache, r["cache"], cfg)
+    plain, _, _ = model.prefill(params, _torch_batch(batch), max_len=max_len)
+    np.testing.assert_allclose(logits.numpy(), plain.numpy(),
+                               **TOL["float32"])
+    # the published config, past its window at its head dim: the kernel
+    full = get_config("mixtral-8x22b")
+    q = torch.zeros(1, full.sliding_window + 1, 1, full.resolved_head_dim)
+    assert T.prefill_route(full, q, "cuda") == "flash"
 
 
 def test_lossy_dispatch_drops_tokens_in_these_cases(ref):
