@@ -1,0 +1,1 @@
+"""drivers of the port's benchmark, found by name."""

@@ -1,0 +1,1 @@
+"""metrics of the port's benchmark, found by name."""

@@ -1,0 +1,10 @@
+"""The benchmark's own tests: run from the repository root with
+``python -m pytest servebench/tests``.  They put ``src`` and the root on
+``sys.path`` themselves."""
+import sys
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parents[2]
+for p in (str(ROOT), str(ROOT / "src")):
+    if p not in sys.path:
+        sys.path.insert(0, p)

@@ -1,0 +1,1 @@
+"""traffic of the port's benchmark, found by name."""
