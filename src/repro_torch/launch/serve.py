@@ -135,7 +135,9 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--config", default="blockllm-demo")
     # observability artifacts (DESIGN.md §8), both backends
     ap.add_argument("--trace-out", default=None,
-                    help="write Chrome trace_event JSON of the run")
+                    help="write Chrome trace_event JSON of the run; its "
+                    "clock anchors (otherData) line it up with a "
+                    "torch.profiler trace of the same process")
     ap.add_argument("--metrics-out", default=None,
                     help="write the metrics registry snapshot JSON")
     # scheduler knobs: generated from the dataclass, shared with the sim

@@ -154,18 +154,24 @@ class BlockEngine(Server):
                      "host_syncs", "attn_calls", "prefill_attn_calls",
                      "lora_calls", "preemptions", "spills",
                      "recalc_readmits", "completed", "tokens_emitted",
-                     "spec_attempts", "spec_hits", "probe_attn_calls"):
+                     "spec_attempts", "spec_hits", "probe_attn_calls",
+                     # step-span counters (ns, and prompt positions)
+                     "dispatch_ns", "host_wait_ns", "prefill_ns",
+                     "prefill_tokens", "prefill_padded_tokens"):
             self.metrics.counter(name)  # pre-register: snapshots start at 0
         self.metrics.set_gauge("max_block_batch", c.max_block_batch)
         self.metrics.set_gauge("spec_accept_rate", 0.0)
         # legacy dict-shaped view: engine.stats[k] reads the counter values
         self.stats = self.metrics.counters_view()
         self._c_steps = self.metrics.counter("steps")
+        # host time inside the megastep calls (executor.megastep spans)
+        self._c_dispatch_ns = self.metrics.counter("dispatch_ns")
         self._h_step_wall = self.metrics.histogram("step_wall_s")
         self.scheduler = Scheduler(policy=c.policy, tracer=self.tracer,
                                    metrics=self.metrics)
         self.executor = BlockExecutor(attn_impl=c.attn_impl,
                                       metrics=self.metrics,
+                                      tracer=self.tracer,
                                       compute_dtype=self.compute_dtype,
                                       device=self.device)
         # spec steps write drafts up to lookahead-1 positions past the
@@ -252,21 +258,25 @@ class BlockEngine(Server):
         return req.rid
 
     def step(self) -> Optional[List[ServeResult]]:
+        """One engine step, recorded as the root ``engine.step`` span with
+        children ``engine.admit``, ``executor.prefill``,
+        ``executor.retire``, ``engine.finish`` and one
+        ``executor.megastep`` per group call (``executor.wait`` spans
+        inside whichever of them blocks on the device)."""
         t0 = time.perf_counter()
-        self._admit()
-        early, self._early = self._early, []
-        if not self.active:
-            if early:
-                return early
-            return None if not self.scheduler.waiting else []
-        self._c_steps.inc()
-        out = early + self._decode_step()
+        with self.tracer.span("engine.step") as sid:
+            self._admit()
+            early, self._early = self._early, []
+            if not self.active:
+                if early:
+                    return early
+                return None if not self.scheduler.waiting else []
+            self._c_steps.inc()
+            out = early + self._decode_step()
+            self.tracer.note(sid, step=self._c_steps.value,
+                             active=len(self.active), finished=len(out))
         self.metrics.set_gauge("active", len(self.active))
-        t1 = time.perf_counter()
-        self._h_step_wall.observe(t1 - t0)
-        self.tracer.global_span("engine_step", t0, t1,
-                                active=len(self.active),
-                                finished=len(out))
+        self._h_step_wall.observe(time.perf_counter() - t0)
         return out
 
     def drain(self) -> List[ServeResult]:
@@ -307,11 +317,14 @@ class BlockEngine(Server):
             steps, self._slot_tokens(entry.prompt_len, entry.gen_len))
 
     def _admit(self):
-        admitted = self.scheduler.admit(
-            fits=self._fits,
-            running=lambda: [self._entries[s.rid] for s in self.active],
-            preempt=(self._preempt_entry if self.config.preemption else None),
-            on_admit=self._place)
+        with self.tracer.span("engine.admit") as sid:
+            admitted = self.scheduler.admit(
+                fits=self._fits,
+                running=lambda: [self._entries[s.rid] for s in self.active],
+                preempt=(self._preempt_entry if self.config.preemption
+                         else None),
+                on_admit=self._place)
+            self.tracer.note(sid, admitted=len(admitted))
         if self._pending_prefill:
             # batched multi-request prefill: slots were allocated per entry
             # during admission (so fits saw true occupancy); the compute
@@ -564,15 +577,18 @@ class BlockEngine(Server):
             hop_states = continuing
         # groups that changed membership (finish/admission) sync to host
         # here; identical groups keep their device-resident DecodeState
-        ex.retire_states(keep=frozenset(
-            tuple(s.rid for s in g) for g in fused_groups))
+        keep = frozenset(tuple(s.rid for s in g) for g in fused_groups)
+        with self.tracer.span("executor.retire",
+                              groups=len(ex.decode_states.keys() - keep)):
+            ex.retire_states(keep=keep)
         # emit the token chosen at the previous step (prefill or decode)
         results = []
-        for s in finishing:
-            s.tokens.append(s.next_token)
-            results.append(self._finish(s))
-        if finishing:
-            ex.invalidate_tables()
+        with self.tracer.span("engine.finish", n=len(finishing)):
+            for s in finishing:
+                s.tokens.append(s.next_token)
+                results.append(self._finish(s))
+            if finishing:
+                ex.invalidate_tables()
         self.active = continuing
         if not continuing:
             return results
@@ -580,24 +596,20 @@ class BlockEngine(Server):
         # speculating, up to spec_lookahead tokens drafted by the surrogate
         # chain and verified exactly), sampling on the device
         for g in fused_groups:
-            if spec_on and _eligible(g[0]):
-                self._spec_group_step(g, rem)
-            else:
-                ex.fused_step(g, self.kv)
+            spec = spec_on and _eligible(g[0])
+            with self.tracer.span("executor.megastep",
+                                  add_to=self._c_dispatch_ns, app=g[0].app,
+                                  B=len(g), spec=spec):
+                if spec:
+                    self._spec_group_step(g, rem)
+                else:
+                    ex.fused_step(g, self.kv)
         if hop_states:
             # per-hop states emit host-side: the pending token lands in
             # s.tokens now and also seeds this step's chain walk
             for s in hop_states:
                 s.tokens.append(s.next_token)
             self._run_hops(hop_states)
-        # one decode_step instant per in-flight request: each engine step
-        # advances every continuing request by at least one token (fused
-        # groups device-resident, spec groups by 1..lookahead, per-hop
-        # host-side), so the host-side dispatch timestamp is the per-step
-        # trace marker
-        t = time.perf_counter()
-        for s in continuing:
-            self.tracer.event(s.rid, "decode_step", t=t)
         return results
 
     def _spec_group_step(self, g: List[_ReqState], rem: Dict[int, int]

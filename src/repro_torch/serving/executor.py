@@ -16,6 +16,14 @@ PyTorch runs eagerly, so the reference's jitted-function caches become
 plain closures; the pool slabs are written in place where the reference
 donates them.  Host syncs are counted where the reference counts them:
 once per ``device_get``-equivalent batch of copies to the host.
+
+Each prefill call is an ``executor.prefill`` span, and each copy that
+blocks the host on the device an ``executor.wait`` span: every copy to
+the host, and the host-to-device staging of a prefill's prompts and of a
+new group's decode state (a copy from pageable host memory waits for the
+stream to drain).  Their durations add to ``prefill_ns`` and
+``host_wait_ns``; ``prefill_tokens`` counts prompt positions and
+``prefill_padded_tokens`` the positions the calls ran, buckets included.
 """
 from __future__ import annotations
 
@@ -38,6 +46,7 @@ from repro_torch.core.blocks import (
 )
 from repro_torch.models import layers as L
 from repro_torch.observability.metrics import MetricsRegistry
+from repro_torch.observability.trace import Tracer
 from repro_torch.serving.kv_pool import KVManager
 
 
@@ -94,11 +103,12 @@ class BlockExecutor:
     def __init__(self, attn_impl: str = "auto",
                  metrics: Optional[MetricsRegistry] = None,
                  compute_dtype: torch.dtype = L.COMPUTE_DTYPE,
-                 device="cuda"):
+                 device="cuda", tracer: Optional[Tracer] = None):
         self.attn_impl = attn_impl
         self.compute_dtype = compute_dtype
         self.device = torch.device(device)
         self.metrics = metrics if metrics is not None else MetricsRegistry()
+        self.tracer = tracer if tracer is not None else Tracer()
         # typed handles held once — the decode hot loop pays one attribute
         # add per event, not a registry lookup (DESIGN.md §8)
         self._c_prefills = self.metrics.counter("prefills")
@@ -115,6 +125,12 @@ class BlockExecutor:
         # and decode): the flash and batched-LoRA kernels' launches
         self._c_prefill_attn_calls = self.metrics.counter("prefill_attn_calls")
         self._c_lora_calls = self.metrics.counter("lora_calls")
+        # step-span counters: host ns in prefill calls and blocked on the
+        # device, and a prefill's real and padded prompt positions
+        self._c_prefill_ns = self.metrics.counter("prefill_ns")
+        self._c_host_wait_ns = self.metrics.counter("host_wait_ns")
+        self._c_prefill_tokens = self.metrics.counter("prefill_tokens")
+        self._c_prefill_padded = self.metrics.counter("prefill_padded_tokens")
         # per-block batch occupancy: every batched device call observes its
         # batch width (compare p50/mean against EngineConfig.max_block_batch)
         self._h_group_batch = self.metrics.histogram("group_batch")
@@ -136,6 +152,22 @@ class BlockExecutor:
         """Count one prefill call's attention hops and LoRA projections."""
         self._c_prefill_attn_calls.inc(sum(b.has_kv for b, _ in steps))
         self._c_lora_calls.inc(_lora_projections(steps))
+
+    def _wait(self, what: str):
+        """Span (``executor.wait``) around a copy that blocks the host."""
+        return self.tracer.span("executor.wait", add_to=self._c_host_wait_ns,
+                                what=what)
+
+    def _prefill_span(self, app: str, rids, bucket: int, tokens: int):
+        """Span (``executor.prefill``) around one prefill call of
+        ``len(rids)`` prompts of ``tokens`` positions in all, each run at
+        ``bucket`` positions."""
+        padded = len(rids) * bucket
+        self._c_prefill_tokens.inc(tokens)
+        self._c_prefill_padded.inc(padded)
+        return self.tracer.span("executor.prefill", add_to=self._c_prefill_ns,
+                                app=app, B=len(rids), bucket=bucket,
+                                rids=list(rids), tokens=tokens, padded=padded)
 
     def invalidate_tables(self) -> None:
         self._table_cache.clear()
@@ -179,24 +211,29 @@ class BlockExecutor:
         and scattering raw K/V into the pools.  With ``sample=False`` the
         lm_head output is discarded — the recompute-on-readmit path rebuilds
         KV for an already-sampled prefix and must keep the pending token."""
-        x = self._tensor(tokens)[None]  # (1, S), unpadded
-        self._count_prefill(state.steps)
-        for i, (block, adapters) in enumerate(state.steps):
-            x, k_r, v = block_prefill_raw(block, x, adapters=adapters,
-                                          attn_impl=self.attn_impl,
-                                          compute_dtype=self.compute_dtype)
-            if k_r is not None:
-                _, pool = kv.pool_for(block)
-                if (state.rid, i) not in pool.slots:
-                    pool.alloc(state.rid, i, state.slot_tokens)
-                pool.write_prefill(state.rid, i, k_r, v)
-        state.kv_len = len(tokens)
-        if sample:
-            logits = x[0, -1]
-            state.next_token = int(torch.argmax(logits))
-            state.probs_last = torch.softmax(logits.float(), -1).cpu().numpy()
-            self._c_host_syncs.inc()
-        self._c_prefills.inc()
+        S = len(tokens)
+        with self._prefill_span(state.app, [state.rid], S, S):
+            with self._wait("stage"):
+                x = self._tensor(tokens)[None]  # (1, S), unpadded
+            self._count_prefill(state.steps)
+            for i, (block, adapters) in enumerate(state.steps):
+                x, k_r, v = block_prefill_raw(
+                    block, x, adapters=adapters, attn_impl=self.attn_impl,
+                    compute_dtype=self.compute_dtype)
+                if k_r is not None:
+                    _, pool = kv.pool_for(block)
+                    if (state.rid, i) not in pool.slots:
+                        pool.alloc(state.rid, i, state.slot_tokens)
+                    pool.write_prefill(state.rid, i, k_r, v)
+            state.kv_len = S
+            if sample:
+                logits = x[0, -1]
+                with self._wait("prefill"):
+                    state.next_token = int(torch.argmax(logits))
+                    state.probs_last = torch.softmax(
+                        logits.float(), -1).cpu().numpy()
+                self._c_host_syncs.inc()
+            self._c_prefills.inc()
 
     def replay(self, state, tokens: np.ndarray, kv: KVManager) -> None:
         """Rebuild the KV of ``tokens`` (already emitted, so already
@@ -238,22 +275,28 @@ class BlockExecutor:
         tok = np.zeros((B, bucket), np.int32)
         for i, s in enumerate(states):
             tok[i, :s.prompt_len] = s.prompt_tokens
-        lens = self._tensor([s.prompt_len for s in states])
-        self._count_prefill(states[0].steps)
-        nxt, probs, kvs = chain_prefill_fused(
-            states[0].steps, self._tensor(tok), lens,
-            attn_impl=self.attn_impl, compute_dtype=self.compute_dtype)
-        hop = 0
-        for i, (block, _) in enumerate(states[0].steps):
-            if not block.has_kv:
-                continue
-            _, pool = kv.pool_for(block)
-            k_r, v = kvs[hop]
-            for bi, s in enumerate(states):
-                pool.write_prefill(s.rid, i, k_r[bi:bi + 1, :s.prompt_len],
-                                   v[bi:bi + 1, :s.prompt_len])
-            hop += 1
-        nxt_h, probs_h = nxt.cpu().numpy(), probs.cpu().numpy()
+        lens = [s.prompt_len for s in states]
+        with self._prefill_span(states[0].app, [s.rid for s in states],
+                                bucket, sum(lens)):
+            with self._wait("stage"):
+                tok_d, lens_d = self._tensor(tok), self._tensor(lens)
+            self._count_prefill(states[0].steps)
+            nxt, probs, kvs = chain_prefill_fused(
+                states[0].steps, tok_d, lens_d,
+                attn_impl=self.attn_impl, compute_dtype=self.compute_dtype)
+            hop = 0
+            for i, (block, _) in enumerate(states[0].steps):
+                if not block.has_kv:
+                    continue
+                _, pool = kv.pool_for(block)
+                k_r, v = kvs[hop]
+                for bi, s in enumerate(states):
+                    pool.write_prefill(s.rid, i,
+                                       k_r[bi:bi + 1, :s.prompt_len],
+                                       v[bi:bi + 1, :s.prompt_len])
+                hop += 1
+            with self._wait("prefill"):
+                nxt_h, probs_h = nxt.cpu().numpy(), probs.cpu().numpy()
         self._c_host_syncs.inc()
         for i, s in enumerate(states):
             s.kv_len = s.prompt_len
@@ -360,9 +403,11 @@ class BlockExecutor:
         if not ds.emitted:
             return  # never stepped: host state is still authoritative
         # one host sync: the backlog, pending tokens and probs come together
-        backlog = torch.cat([t for t, _ in ds.emitted], dim=1).cpu().numpy()
-        nxt = ds.next_token.cpu().numpy()
-        probs = ds.probs.cpu().numpy()
+        with self._wait("retire"):
+            backlog = torch.cat([t for t, _ in ds.emitted],
+                                dim=1).cpu().numpy()
+            nxt = ds.next_token.cpu().numpy()
+            probs = ds.probs.cpu().numpy()
         self._c_host_syncs.inc()
         for i, s in enumerate(ds.states):
             col = 0
@@ -379,19 +424,21 @@ class BlockExecutor:
         for i, (block, _) in enumerate(states[0].steps):
             if block.has_kv:
                 _, pool = kv.pool_for(block)
-                tables.append(self._tensor(
-                    pool.block_table([(s.rid, i) for s in states])))
-        return tuple(tables)
+                tables.append(pool.block_table([(s.rid, i) for s in states]))
+        with self._wait("stage"):
+            return tuple(self._tensor(t) for t in tables)
 
     def _make_state(self, states: List, kv: KVManager) -> DecodeState:
         steps = states[0].steps
         sig = chain_signature(steps)
         rids = tuple(s.rid for s in states)
+        tables = self._tables(states, kv)
+        with self._wait("stage"):
+            next_token = self._tensor([s.next_token for s in states])
+            kv_len = self._tensor([s.kv_len for s in states])
         ds = DecodeState(
             rids=rids, sig=sig, states=list(states),
-            next_token=self._tensor([s.next_token for s in states]),
-            kv_len=self._tensor([s.kv_len for s in states]),
-            tables=self._tables(states, kv),
+            next_token=next_token, kv_len=kv_len, tables=tables,
             kv_len0=[s.kv_len for s in states],
             buffered_counts=[0] * len(states))
         self.decode_states[rids] = ds
@@ -460,13 +507,16 @@ class BlockExecutor:
                                + _lora_projections(sur_steps)
                                * (lookahead - 1))
         self._h_group_batch.observe(len(states))
-        budget = self._tensor(budgets)
+        with self._wait("stage"):
+            budget = self._tensor(budgets)
         (commit_tok, commit_cnt, accepted, attempts, nxt, probs,
          _, _, kv_len) = fn(ds.next_token, pk, pv, ds.tables, ds.kv_len,
                             budget)
         # one host sync: the three count vectors come together
-        cnt_h, acc_h, att_h = torch.stack(
-            [commit_cnt, accepted, attempts]).cpu().numpy().astype(np.int64)
+        with self._wait("spec"):
+            cnt_h, acc_h, att_h = torch.stack(
+                [commit_cnt, accepted, attempts]).cpu().numpy().astype(
+                    np.int64)
         self._c_host_syncs.inc()
         ds.emitted.append((commit_tok, cnt_h))
         for i in range(len(states)):
@@ -533,14 +583,16 @@ class BlockExecutor:
             by_vocab.setdefault(xs[s.rid].shape[-1], []).append(s)
         for group in by_vocab.values():
             logits = torch.cat([xs[s.rid] for s in group], dim=0)[:, 0]
-            nxt = torch.argmax(logits, dim=-1).cpu().numpy()
+            with self._wait("sample"):
+                nxt = torch.argmax(logits, dim=-1).cpu().numpy()
             self._c_host_syncs.inc()
             last = [i for i, s in enumerate(group)
                     if len(s.tokens) + 1 >= s.gen_len]
             if last:
                 rows = torch.as_tensor(last, device=logits.device)
                 probs = torch.softmax(logits[rows].float(), dim=-1)
-                probs = probs.cpu().numpy()
+                with self._wait("sample"):
+                    probs = probs.cpu().numpy()
                 self._c_host_syncs.inc()
                 for j, i in enumerate(last):
                     group[i].probs_last = probs[j]
