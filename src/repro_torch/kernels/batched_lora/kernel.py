@@ -26,7 +26,8 @@ D_CHUNK = 128  # kKC: the D chunk of the summation order
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 # launches of the CUDA kernel since the count was last set to 0; the
-# wrapper adds one per launch and nothing else touches it
+# wrapper adds one per launch, and a megastep graph's replay the launches
+# it holds (serving/executor.py)
 launches = 0
 
 

@@ -32,7 +32,8 @@ SPLIT_TOKENS = 128
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 # launches of the CUDA kernel since the count was last set to 0; the
-# wrapper adds one per launch and nothing else touches it
+# wrapper adds one per launch, and a megastep graph's replay the launches
+# it holds (serving/executor.py)
 launches = 0
 
 # per device: B * KVH int32 counters, zero between launches (the last split

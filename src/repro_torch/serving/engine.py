@@ -157,7 +157,10 @@ class BlockEngine(Server):
                      "spec_attempts", "spec_hits", "probe_attn_calls",
                      # step-span counters (ns, and prompt positions)
                      "dispatch_ns", "host_wait_ns", "prefill_ns",
-                     "prefill_tokens", "prefill_padded_tokens"):
+                     "prefill_tokens", "prefill_padded_tokens",
+                     # megastep graphs (BlockExecutor.fused_step)
+                     "graph_replays", "graph_captures", "graph_lanes",
+                     "graph_real_lanes"):
             self.metrics.counter(name)  # pre-register: snapshots start at 0
         self.metrics.set_gauge("max_block_batch", c.max_block_batch)
         self.metrics.set_gauge("spec_accept_rate", 0.0)
@@ -169,17 +172,20 @@ class BlockEngine(Server):
         self._h_step_wall = self.metrics.histogram("step_wall_s")
         self.scheduler = Scheduler(policy=c.policy, tracer=self.tracer,
                                    metrics=self.metrics)
-        self.executor = BlockExecutor(attn_impl=c.attn_impl,
-                                      metrics=self.metrics,
-                                      tracer=self.tracer,
-                                      compute_dtype=self.compute_dtype,
-                                      device=self.device)
         # spec steps write drafts up to lookahead-1 positions past the
         # committed length, so slots need that much headroom: a write past
         # a slot's last page would land on the trash page (or, in a table
         # the group pads wider, on no page of the row at all)
         self._spec_headroom = c.spec_lookahead if c.speculation else 0
         pages_per_seq = -(-(max_len + self._spec_headroom) // c.page_size)
+        # the megastep graphs' tables hold a slot, their lanes a group
+        self.executor = BlockExecutor(attn_impl=c.attn_impl,
+                                      metrics=self.metrics,
+                                      tracer=self.tracer,
+                                      compute_dtype=self.compute_dtype,
+                                      device=self.device,
+                                      table_width=pages_per_seq,
+                                      max_lanes=c.max_block_batch)
         num_pages = c.num_pages or (
             1 + c.max_active * pages_per_seq * self._max_attn_steps())
         self.kv = KVManager(c.page_size, num_pages, dtype=self.compute_dtype,

@@ -24,6 +24,28 @@ new group's decode state (a copy from pageable host memory waits for the
 stream to drain).  Their durations add to ``prefill_ns`` and
 ``host_wait_ns``; ``prefill_tokens`` counts prompt positions and
 ``prefill_padded_tokens`` the positions the calls ran, buckets included.
+
+Megastep graphs.  A fused group runs its megastep over the static buffers
+of a ``MegastepGraph``, one per (chain signature, lane bucket): the
+group's lanes padded to a power of two of at least 8, or to ``max_lanes``
+where that is fewer, its page tables to ``table_width`` pages.  Pad lanes
+hold token 0, kv length 0 and tables of ``TRASH_PAGE``, and their kv
+length stays 0, so they write only the trash page.  The step writes its
+next tokens and ``kv_len + 1`` back into the buffers, so a stable group's
+state stays there; a group that re-forms is staged into them again.  On a
+card, the first call of a bucket runs the megastep eagerly on a side
+stream (which also fills every host-side cache) and then captures it as a
+CUDA graph in the executor's memory pool; later calls replay the graph:
+the same kernels, the same work, no host issue.  On the CPU a replay
+calls the megastep on the buffers.  A signature's buckets share one
+probabilities buffer, so a signature binds one live group at a time: a
+second live group of the signature, speculative steps, and groups with a
+row wider than ``table_width`` run the eager megastep.  A replay adds the
+launches its graph recorded to the kernel modules' ``launches`` counters,
+and a capture takes back the ones it recorded without running them.
+Counters: ``graph_replays`` (group calls served by a replay),
+``graph_captures`` (a bucket's first call), ``graph_lanes`` (lanes the
+replays ran, pads included) and ``graph_real_lanes``.
 """
 from __future__ import annotations
 
@@ -44,10 +66,16 @@ from repro_torch.core.blocks import (
     chain_prefill_fused,
     chain_signature,
 )
+from repro_torch.kernels.batched_lora import kernel as lora_kernel
+from repro_torch.kernels.paged_attention import kernel as pa_kernel
 from repro_torch.models import layers as L
 from repro_torch.observability.metrics import MetricsRegistry
 from repro_torch.observability.trace import Tracer
-from repro_torch.serving.kv_pool import KVManager
+from repro_torch.serving.kv_pool import TRASH_PAGE, KVManager
+
+# the hand-written kernels a megastep launches: a graph's replay adds the
+# launches it holds to their modules' counters
+_GRAPH_KERNELS = (pa_kernel, lora_kernel)
 
 
 def _bucket(n: int, lo: int = 8) -> int:
@@ -95,6 +123,29 @@ class DecodeState:
         default_factory=list)
     buffered_counts: List[int] = field(default_factory=list)  # per lane
     probs: Optional[torch.Tensor] = None  # (B, V) probs of latest next_token
+    graph: Optional["MegastepGraph"] = None  # the bucket it is bound to
+
+
+@dataclass
+class MegastepGraph:
+    """Static decode state of one (chain signature, lane bucket) and, on a
+    card, the CUDA graph of the megastep over it.  ``ints`` is one int32
+    buffer, so a forming group is staged in one copy; the other int32
+    tensors are views into it."""
+    lanes: int                        # the bucket: lanes the step runs
+    ints: torch.Tensor                # tables, tokens, kv_len, live
+    tables: Tuple[torch.Tensor, ...]  # (lanes, W) page table per attn hop
+    tokens: torch.Tensor              # (lanes,) pending tokens, then next
+    kv_len: torch.Tensor              # (lanes,) cached, then kv_len + 1
+    live: torch.Tensor                # (lanes,) 1 on a real lane, 0 on a pad
+    probs: torch.Tensor               # (lanes, V) fp32: rows of the chain's
+    #   buffer, which every bucket of the signature shares
+    graph: Optional[object] = None    # torch.cuda.CUDAGraph, once captured
+    keep: Tuple = ()                  # other buffers the graph points into
+    launches: Tuple[int, ...] = ()    # per _GRAPH_KERNELS, what it holds
+    ready: bool = False               # its first call has run
+    views: Tuple[torch.Tensor, ...] = ()  # the bound group's rows: tokens,
+    #   kv_len, probs
 
 
 class BlockExecutor:
@@ -103,7 +154,12 @@ class BlockExecutor:
     def __init__(self, attn_impl: str = "auto",
                  metrics: Optional[MetricsRegistry] = None,
                  compute_dtype: torch.dtype = L.COMPUTE_DTYPE,
-                 device="cuda", tracer: Optional[Tracer] = None):
+                 device="cuda", tracer: Optional[Tracer] = None, *,
+                 table_width: int, max_lanes: int):
+        """``table_width``: pages per row of a megastep graph's page
+        tables, the most a slot can hold; ``max_lanes``: the most lanes a
+        fused group has, the largest bucket.  The executor serves one
+        ``KVManager``: a graph keeps the pool slabs it was captured on."""
         self.attn_impl = attn_impl
         self.compute_dtype = compute_dtype
         self.device = torch.device(device)
@@ -131,6 +187,12 @@ class BlockExecutor:
         self._c_host_wait_ns = self.metrics.counter("host_wait_ns")
         self._c_prefill_tokens = self.metrics.counter("prefill_tokens")
         self._c_prefill_padded = self.metrics.counter("prefill_padded_tokens")
+        # megastep graphs: group calls a replay served, buckets' first
+        # calls, and the lanes the replays ran, pads included, and real
+        self._c_graph_replays = self.metrics.counter("graph_replays")
+        self._c_graph_captures = self.metrics.counter("graph_captures")
+        self._c_graph_lanes = self.metrics.counter("graph_lanes")
+        self._c_graph_real = self.metrics.counter("graph_real_lanes")
         # per-block batch occupancy: every batched device call observes its
         # batch width (compare p50/mean against EngineConfig.max_block_batch)
         self._h_group_batch = self.metrics.histogram("group_batch")
@@ -147,6 +209,17 @@ class BlockExecutor:
         # finish/preempt/restore and the cap bounds membership churn
         self.table_cache_max = 128
         self._table_cache: OrderedDict[Tuple, torch.Tensor] = OrderedDict()
+        self.table_width = table_width
+        self.max_lanes = max_lanes
+        # megastep graphs per (chain signature, lane bucket); each
+        # signature's (max_lanes, V) fp32 probabilities buffer, shared by
+        # its buckets; the signatures a live group is bound to; on a card,
+        # the graphs' memory pool and capture stream
+        self.graphs: Dict[Tuple, MegastepGraph] = {}
+        self._graph_probs: Dict[Tuple, torch.Tensor] = {}
+        self._bound: set = set()
+        self._graph_pool = None
+        self._capture_stream = None
 
     def _count_prefill(self, steps) -> None:
         """Count one prefill call's attention hops and LoRA projections."""
@@ -386,9 +459,14 @@ class BlockExecutor:
     def retire_states(self, keep: frozenset = frozenset()) -> None:
         """Sync-and-drop every DecodeState whose rid tuple is not in
         ``keep`` — called when group membership changes (finish, preempt,
-        admission) so host state is fresh before the engine touches it."""
+        admission) so host state is fresh before the engine touches it.
+        A dropped state frees the megastep graph it was bound to."""
         for rids in [k for k in self.decode_states if k not in keep]:
-            self._sync_state(self.decode_states.pop(rids))
+            ds = self.decode_states.pop(rids)
+            self._sync_state(ds)
+            if ds.graph is not None:
+                ds.graph.views = ()
+                self._bound.discard(ds.sig)
             for r in rids:
                 self._rid_group.pop(r, None)
 
@@ -407,7 +485,8 @@ class BlockExecutor:
             backlog = torch.cat([t for t, _ in ds.emitted],
                                 dim=1).cpu().numpy()
             nxt = ds.next_token.cpu().numpy()
-            probs = ds.probs.cpu().numpy()
+            # a copy on the CPU too: a graph's step rewrites its buffer
+            probs = ds.probs.to("cpu", copy=True).numpy()
         self._c_host_syncs.inc()
         for i, s in enumerate(ds.states):
             col = 0
@@ -418,42 +497,194 @@ class BlockExecutor:
             s.probs_last = probs[i]
             s.kv_len = ds.kv_len0[i] + ds.buffered_counts[i]
 
+    @staticmethod
+    def _host_tables(states: List, kv: KVManager) -> List[np.ndarray]:
+        """One (B, n) page table per attention hop of the group's chain,
+        on the host."""
+        return [kv.pool_for(block)[1].block_table([(s.rid, i)
+                                                   for s in states])
+                for i, (block, _) in enumerate(states[0].steps)
+                if block.has_kv]
+
     def _tables(self, states: List, kv: KVManager) -> Tuple[torch.Tensor, ...]:
         """One (B, n) page table per attention hop of the group's chain."""
-        tables = []
-        for i, (block, _) in enumerate(states[0].steps):
-            if block.has_kv:
-                _, pool = kv.pool_for(block)
-                tables.append(pool.block_table([(s.rid, i) for s in states]))
+        tables = self._host_tables(states, kv)
         with self._wait("stage"):
             return tuple(self._tensor(t) for t in tables)
 
-    def _make_state(self, states: List, kv: KVManager) -> DecodeState:
+    def _make_state(self, states: List, kv: KVManager,
+                    bind: bool = False) -> DecodeState:
+        """The group's DecodeState.  With ``bind`` (a plain fused step) it
+        is bound to its megastep graph where its signature is free, and
+        staged into that graph's buffers."""
         steps = states[0].steps
         sig = chain_signature(steps)
         rids = tuple(s.rid for s in states)
-        tables = self._tables(states, kv)
-        with self._wait("stage"):
-            next_token = self._tensor([s.next_token for s in states])
-            kv_len = self._tensor([s.kv_len for s in states])
+        B = len(states)
+        host = self._host_tables(states, kv)
+        g = self._free_graph(sig, steps, B, host) if bind else None
+        if g is not None:
+            with self._wait("stage"):
+                self._stage(g, states, host)
+            self._bound.add(sig)
+            g.views = (g.tokens[:B], g.kv_len[:B], g.probs[:B])
+            next_token, kv_len = g.views[:2]
+            tables = tuple(t[:B] for t in g.tables)
+        else:
+            with self._wait("stage"):
+                tables = tuple(self._tensor(t) for t in host)
+                next_token = self._tensor([s.next_token for s in states])
+                kv_len = self._tensor([s.kv_len for s in states])
         ds = DecodeState(
             rids=rids, sig=sig, states=list(states),
             next_token=next_token, kv_len=kv_len, tables=tables,
             kv_len0=[s.kv_len for s in states],
-            buffered_counts=[0] * len(states))
+            buffered_counts=[0] * B, graph=g)
         self.decode_states[rids] = ds
         for r in rids:
             self._rid_group[r] = rids
         return ds
 
+    # -- megastep graphs ---------------------------------------------------
+
+    def _free_graph(self, sig, steps, B: int, host: List[np.ndarray]
+                    ) -> Optional[MegastepGraph]:
+        """The megastep graph of (``sig``, the bucket of ``B``), made on
+        first use; None where the group runs eagerly: another live group
+        of the signature is bound, or a row is wider than the tables."""
+        if sig in self._bound \
+                or any(t.shape[1] > self.table_width for t in host):
+            return None
+        key = (sig, min(_bucket(B), self.max_lanes))
+        g = self.graphs.get(key)
+        if g is None:
+            g = self.graphs[key] = self._new_graph(
+                sig, key[1], len(host),
+                steps[-1][0].params["lm_head"].shape[-1])
+        return g
+
+    def _new_graph(self, sig, lanes: int, hops: int,
+                   vocab: int) -> MegastepGraph:
+        W = self.table_width
+        ints = torch.zeros(hops * lanes * W + 3 * lanes, dtype=torch.int32,
+                           device=self.device)
+        tabs = ints[:hops * lanes * W].view(hops, lanes, W)
+        rest = ints[hops * lanes * W:].view(3, lanes)
+        probs = self._graph_probs.get(sig)
+        if probs is None:
+            probs = self._graph_probs[sig] = torch.zeros(
+                (self.max_lanes, vocab), dtype=torch.float32,
+                device=self.device)
+        return MegastepGraph(
+            lanes=lanes, ints=ints, tables=tuple(tabs.unbind(0)),
+            tokens=rest[0], kv_len=rest[1], live=rest[2],
+            probs=probs[:lanes])
+
+    def _stage(self, g: MegastepGraph, states: List,
+               host: List[np.ndarray]) -> None:
+        """Copy a forming group into rows [:B] of the graph's buffers and
+        reset the pad lanes (token 0, kv_len 0, tables of the trash page,
+        not live), in one copy: from pinned memory on a card, so the host
+        does not wait for the stream."""
+        B, lanes, W = len(states), g.lanes, self.table_width
+        buf = np.zeros(g.ints.numel(), np.int32)
+        tabs = buf[:len(host) * lanes * W].reshape(len(host), lanes, W)
+        tabs[:] = TRASH_PAGE
+        for hop, t in enumerate(host):
+            tabs[hop, :B, :t.shape[1]] = t
+        rest = buf[len(host) * lanes * W:].reshape(3, lanes)
+        rest[0, :B] = [s.next_token for s in states]
+        rest[1, :B] = [s.kv_len for s in states]
+        rest[2, :B] = 1
+        src = torch.from_numpy(buf)
+        if g.ints.is_cuda:
+            # the pinned block is not reused before the copy has run
+            g.ints.copy_(src.pin_memory(), non_blocking=True)
+        else:
+            g.ints.copy_(src)
+
+    @staticmethod
+    def _run_static(g: MegastepGraph, fn, pk, pv) -> None:
+        """The megastep over the graph's buffers: the eager megastep, then
+        its outputs written back, so a stable group's next step finds its
+        state in place; pad lanes' kv_len stays 0."""
+        nxt, probs, _, _, kv_len = fn(g.tokens, pk, pv, g.tables, g.kv_len)
+        g.probs.copy_(probs)
+        g.tokens.copy_(nxt)
+        torch.mul(kv_len, g.live, out=g.kv_len)
+
+    def _capture(self, g: MegastepGraph, fn, pk, pv) -> None:
+        """A bucket's first call: the megastep over its buffers, eagerly;
+        on a card on the capture stream, where it also fills every
+        host-side cache (weight casts, tile ids, the LoRA scaling, the
+        kernels' counters and libraries) and cuBLAS's workspace for that
+        stream, and then captured as a CUDA graph in the executor's pool.
+        The graph keeps the paged kernel's counter buffer, which the
+        kernel module replaces when a larger call needs more, and the
+        launches the capture recorded, which ran nothing."""
+        if not g.ints.is_cuda:
+            self._run_static(g, fn, pk, pv)
+            g.ready = True
+            return
+        if self._graph_pool is None:
+            self._graph_pool = torch.cuda.graph_pool_handle()
+            self._capture_stream = torch.cuda.Stream(self.device)
+        cur = torch.cuda.current_stream(self.device)
+        side = self._capture_stream
+        side.wait_stream(cur)
+        with torch.cuda.stream(side):
+            self._run_static(g, fn, pk, pv)
+            graph = torch.cuda.CUDAGraph()
+            before = [m.launches for m in _GRAPH_KERNELS]
+            graph.capture_begin(pool=self._graph_pool)
+            try:
+                self._run_static(g, fn, pk, pv)
+            finally:
+                graph.capture_end()
+        cur.wait_stream(side)
+        g.launches = tuple(m.launches - n
+                           for m, n in zip(_GRAPH_KERNELS, before))
+        for m, n in zip(_GRAPH_KERNELS, g.launches):
+            m.launches -= n
+        g.graph = graph
+        g.keep = (pa_kernel._counters.get(g.ints.device),)
+        g.ready = True
+
+    def _graph_step(self, ds: DecodeState, fn, pk, pv) -> torch.Tensor:
+        """One megastep of a group bound to a graph: its bucket's first
+        call, or a replay.  Returns the tokens it emits, (B, 1), copied
+        out of the buffer the step overwrites."""
+        g = ds.graph
+        tok, kv_len, probs = g.views
+        if ds.next_token is not tok:  # a speculative step moved the state
+            tok.copy_(ds.next_token)
+            kv_len.copy_(ds.kv_len)
+        emitted = tok[:, None].clone()
+        if not g.ready:
+            self._capture(g, fn, pk, pv)
+            self._c_graph_captures.inc()
+        else:
+            if g.graph is not None:
+                g.graph.replay()
+                for m, n in zip(_GRAPH_KERNELS, g.launches):
+                    m.launches += n
+            else:
+                self._run_static(g, fn, pk, pv)
+            self._c_graph_replays.inc()
+            self._c_graph_lanes.inc(g.lanes)
+            self._c_graph_real.inc(tok.shape[0])
+        ds.next_token, ds.kv_len, ds.probs = tok, kv_len, probs
+        return emitted
+
     def fused_step(self, states: List, kv: KVManager) -> None:
         """One token for one fused group: a single chain call with sampling
-        on the device.  The pending token and kv lengths stay
+        on the device, replayed from its megastep graph where the group is
+        bound to one.  The pending token and kv lengths stay
         device-resident between calls."""
         rids = tuple(s.rid for s in states)
         ds = self.decode_states.get(rids)
         if ds is None:
-            ds = self._make_state(states, kv)
+            ds = self._make_state(states, kv, bind=True)
         fn, pool_keys, n_attn = self.fused_fn(states[0].steps, ds.sig)
         pools = [kv.pools[k] for k in pool_keys]
         pk = tuple(p.k_pages for p in pools)
@@ -462,15 +693,17 @@ class BlockExecutor:
         self._c_attn_calls.inc(n_attn)
         self._c_lora_calls.inc(_lora_projections(states[0].steps))
         self._h_group_batch.observe(len(states))
-        nxt, probs, _, _, kv_len = fn(ds.next_token, pk, pv, ds.tables,
-                                      ds.kv_len)
         B = len(states)
-        ds.emitted.append((ds.next_token[:, None], np.ones(B, np.int64)))
+        if ds.graph is not None:
+            emitted = self._graph_step(ds, fn, pk, pv)
+        else:
+            nxt, probs, _, _, kv_len = fn(ds.next_token, pk, pv, ds.tables,
+                                          ds.kv_len)
+            emitted = ds.next_token[:, None]
+            ds.next_token, ds.probs, ds.kv_len = nxt, probs, kv_len
+        ds.emitted.append((emitted, np.ones(B, np.int64)))
         for i in range(B):
             ds.buffered_counts[i] += 1
-        ds.next_token = nxt
-        ds.probs = probs
-        ds.kv_len = kv_len
         self._c_decode_tokens.inc(B)
 
     def spec_step(self, states: List, kv: KVManager, sur_steps,

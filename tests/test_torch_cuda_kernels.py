@@ -1013,3 +1013,157 @@ def test_train_step_on_the_card_matches_the_cpu(card, name):
     for g, w in zip(tree_leaves(grads), tree_leaves(want)):
         err = float((g.cpu() - w).norm()) / max(float(w.norm()), 1e-30)
         assert err <= 1e-4, err
+
+
+# ---------------------------------------------------------------------------
+# megastep graphs: the fused decode megastep captured and replayed
+# ---------------------------------------------------------------------------
+
+
+@pytest.fixture(scope="module")
+def demo_zoo():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
+    from repro_torch.serving.demo import build_demo_zoo
+
+    return build_demo_zoo(0, device="cuda")[2]
+
+
+def _graph_sides(zoo, n, app="app-lora"):
+    """Two executors over KV pools prefilled alike on the card: one that
+    captures and replays its megastep graphs, one that runs the same
+    padded megastep over the same buffers eagerly on every call."""
+    from test_torch_megastep_graph import MAX_LEN, _Side
+
+    graph = _Side(zoo, app, "bfloat16", n, MAX_LEN, device="cuda")
+    eager = _Side(zoo, app, "bfloat16", n, MAX_LEN, device="cuda")
+
+    def first_call(g, fn, pk, pv):
+        eager.ex._run_static(g, fn, pk, pv)
+        g.ready = True
+
+    eager.ex._capture = first_call
+    return graph, eager
+
+
+def _same_on_the_card(graph, eager, groups):
+    torch.cuda.synchronize()
+    for g in groups:
+        a = graph.ex.decode_states[tuple(g)]
+        b = eager.ex.decode_states[tuple(g)]
+        for name in ("next_token", "kv_len", "probs"):
+            assert torch.equal(getattr(a, name), getattr(b, name)), name
+    for x, y in zip(graph.slabs(), eager.slabs()):
+        assert torch.equal(x, y)  # the trash page too: pads ran alike
+
+
+@pytest.mark.cuda
+def test_megastep_replay_matches_the_eager_bucket(demo_zoo):
+    """Replays of the captured megastep equal the same padded megastep
+    issued eagerly, bitwise in tokens, probabilities, kv lengths and every
+    page, over steps that re-stage a bucket (a finish, a join) and open a
+    second one; retiring gives the same host states.  The kernel modules'
+    launch counters advance alike on both sides: a replay adds the
+    launches its graph recorded, and a capture counts only its eager run."""
+    from test_torch_megastep_graph import SCHEDULE, _assert_same_host
+
+    def launched(side, g):
+        before = (t_kernel.launches, lora_kernel.launches)
+        side.step([g])
+        return (t_kernel.launches - before[0],
+                lora_kernel.launches - before[1])
+
+    graph, eager = _graph_sides(demo_zoo, 12)
+    for g in SCHEDULE:
+        got = launched(graph, g)
+        want = launched(eager, g)
+        assert got == want and min(want) > 0, (got, want)
+        _same_on_the_card(graph, eager, [g])
+        assert graph.ex.decode_states[tuple(g)].graph.graph is not None
+        assert eager.ex.decode_states[tuple(g)].graph.graph is None
+    graph.ex.retire_states()
+    eager.ex.retire_states()
+    _assert_same_host(graph, eager)
+    c = graph.counters()
+    assert (c["graph_captures"], c["graph_replays"]) == (2, len(SCHEDULE) - 2)
+
+
+@pytest.mark.cuda
+def test_megastep_replay_survives_a_larger_paged_call(demo_zoo, card):
+    """A paged call wide enough to replace the kernel's counter buffer
+    leaves the captured graphs right: each keeps the buffer it points
+    into."""
+    graph, eager = _graph_sides(demo_zoo, 6, app="base")
+    g = [0, 1, 2, 3, 4, 5]
+    for side in (graph, eager):
+        side.step([g])
+    buf = graph.ex.decode_states[tuple(g)].graph
+    dev = buf.ints.device
+    old = t_kernel._counters[dev]
+    assert buf.keep[0] is old
+    KVH = 4
+    q, kp, vp, tables, lens = _inputs(old.numel() // KVH + 1, 8, KVH, 32, 16,
+                                      2, torch.bfloat16, card)
+    paged_attention(q, kp, vp, tables, lens)
+    assert t_kernel._counters[dev] is not old
+    for _ in range(4):
+        for side in (graph, eager):
+            side.step([g])
+        _same_on_the_card(graph, eager, [g])
+    assert graph.counters()["graph_replays"] == 4
+
+
+@pytest.mark.cuda
+def test_steady_megastep_replay_holds_no_sync(demo_zoo):
+    """A bound group's replayed steps issue no host synchronisation."""
+    graph, _ = _graph_sides(demo_zoo, 5, app="vicuna")
+    g = [0, 1, 2, 3, 4]
+    graph.step([g])
+    torch.cuda.synchronize()
+    states = graph.group(g)
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for _ in range(3):
+            graph.ex.fused_step(states, graph.kv)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    assert graph.counters()["graph_replays"] == 3
+
+
+@pytest.mark.cuda
+def test_engine_serves_the_eager_tokens_with_replay(demo_zoo):
+    """An engine on the demo zoo serves the same tokens with megastep
+    replays as with the eager megastep (its graphs off), through groups
+    that finish and join."""
+    from test_torch_megastep_graph import _bind_nothing
+
+    from repro_torch.serving.api import ServeRequest
+    from repro_torch.serving.engine import BlockEngine, EngineConfig
+
+    rng = np.random.RandomState(3)
+    reqs = [ServeRequest(app=("base", "vicuna", "app-lora")[i % 3],
+                         gen_len=int(rng.randint(4, 24)),
+                         prompt_tokens=rng.randint(0, 512, size=int(
+                             rng.randint(6, 60))).astype(np.int32))
+            for i in range(24)]
+    out = []
+    for graphs in (True, False):
+        e = BlockEngine(demo_zoo, max_len=128, config=EngineConfig(
+            device="cuda", compute_dtype="bfloat16", max_active=16))
+        if not graphs:
+            e.executor._free_graph = _bind_nothing
+        rids = [e.submit(ServeRequest(app=r.app, gen_len=r.gen_len,
+                                      prompt_tokens=r.prompt_tokens))
+                for r in reqs[:12]]
+        done = {r.rid: r for r in e.step()}
+        rids += [e.submit(ServeRequest(app=r.app, gen_len=r.gen_len,
+                                       prompt_tokens=r.prompt_tokens))
+                 for r in reqs[12:]]
+        done.update({r.rid: r for r in e.drain()})
+        out.append(([done[r] for r in rids], dict(e.stats)))
+    (got, st), (want, st0) = out
+    for a, b in zip(got, want):
+        np.testing.assert_array_equal(a.tokens, b.tokens)
+    assert st["graph_replays"] > st["graph_captures"] > 0
+    assert st0["graph_replays"] == 0

@@ -250,7 +250,7 @@ def test_spec_fn_rejects_a_surrogate_with_another_kv_layout(zoo):
     steps = _steps(zoo, "base")
     sur = [(build_surrogate(b, 0.5, prune_kv=True) if b.has_kv else b, a)
            for b, a in steps]
-    ex = BlockExecutor(device="cpu")
+    ex = BlockExecutor(device="cpu", table_width=16, max_lanes=16)
     with pytest.raises(ValueError, match="KV-pool layout"):
         ex.spec_fn(steps, sur, chain_signature(steps), 4)
     fn, keys, n_attn = ex.spec_fn(steps, _sur_steps(zoo, steps, 0.25),
