@@ -984,7 +984,9 @@ def main_path_cases(cfg, paths):
     for each prefill group (B, bucket), flash at (B, bucket) and, for an
     app-lora group, the q and v projections at T = B * bucket; for each
     app-lora decode batch width T = 1 .. (the path's app-lora requests),
-    the q and v projections at T."""
+    and each lane bucket a merged walk over the three apps' lanes runs
+    (``executor._bucket`` of 1 .. the path's requests, capped at the
+    engine's ``max_block_batch`` of 16), the q and v projections at T."""
     H, KVH, hd = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
     width = {"q": H * hd, "v": KVH * hd}
     flash, lora = {}, {}
@@ -995,7 +997,9 @@ def main_path_cases(cfg, paths):
                 for proj, F in width.items():
                     lora[f"main_prefill_{proj}_T{B * S}"] = (
                         B * S, cfg.d_model, F, 1, LORA_RANK, LORA_BT)
-        for T in range(1, 1 + sum(r.app == "app-lora" for r in reqs)):
+        merged = {min(_bucket(n), 16) for n in range(1, 1 + len(reqs))}
+        for T in sorted(set(range(1, 1 + sum(r.app == "app-lora"
+                                             for r in reqs))) | merged):
             for proj, F in width.items():
                 lora[f"main_decode_{proj}_T{T}"] = (
                     T, cfg.d_model, F, 1, LORA_RANK, LORA_BT)
@@ -4172,14 +4176,13 @@ def main():
         **mesh_launches}
     # the shape each kernel's ms stands for: paged attention's decode
     # batch; flash's costliest prefill call (the long path's largest
-    # group); LoRA's decode q projection at the engine's app-lora batch,
-    # where most of its launches run
+    # group); LoRA's decode q projection at the lane bucket of the merged
+    # walk over the engine's three apps, where most of its launches run
     (_, S), B = max(prefill_groups(long_traffic(cfg)).items(),
                     key=lambda kv: kv[0][1] * kv[1])
-    n_lora = sum(q.app == "app-lora" for q in reqs)
     main_case = {"paged_attention": "main_path",
                  "flash_attention": f"main_B{B}_S{S}",
-                 "batched_lora": f"main_decode_q_T{n_lora}"}
+                 "batched_lora": f"main_decode_q_T{min(_bucket(len(reqs)), 16)}"}
     # paged attention runs on the main paths as the fused decode step (one
     # launch: page write and attention), so its line gives that call's
     # time, bound and plain version (scatter + attend); SDPA attends only

@@ -205,14 +205,26 @@ def _qkv(h, p, adapters, attn_impl: str = "auto"):
     if len(lora) > 1:
         raise NotImplementedError(
             "the batched-LoRA kernel takes one LoRA adapter per hop")
-    a = lora[0]
-    ap = a.compute_params(h.dtype)
-    s = a.lora_scaling(h.dtype)
-    q = _lora_proj(h, p["wq"], ap["a_q"], ap["b_q"], s, impl)
+    q = _adapted_proj(h, p["wq"], lora[0], "q", impl)
     k = _proj(h, p["wk"])
-    v = _lora_proj(h, p["wv"], ap["a_v"], ap["b_v"], s, impl)
+    v = _adapted_proj(h, p["wv"], lora[0], "v", impl)
     # BitFit biases after the LoRA deltas, as in the reference's loop
     return _peft_qkv(h, q, k, v, [x for x in adapters if x.kind != "lora"])
+
+
+def _adapted_proj(h, w, lora, which: str, impl: Optional[str]):
+    """``h @ w`` with LoRA adapter ``lora``'s delta for projection
+    ``which`` (q or v), as ``_qkv`` computes it on route ``impl``: through
+    the batched-LoRA kernel, or on the reference's route (``None``) the
+    plain product plus the delta.  ``lora`` None: the plain product."""
+    if lora is None:
+        return _proj(h, w)
+    ap = lora.compute_params(h.dtype)
+    if impl is None:
+        y = _proj(h, w)
+        return y + _lora_delta(h, ap, which).reshape(y.shape).to(h.dtype)
+    return _lora_proj(h, w, ap[f"a_{which}"], ap[f"b_{which}"],
+                      lora.lora_scaling(h.dtype), impl)
 
 
 def _attn_sublayer(x, p, cfg, positions, adapters=(), attn_impl="auto"):
@@ -389,15 +401,18 @@ def block_decode_paged(block: Block, x, k_pages, v_pages, block_tables,
     return out, k_pages, v_pages
 
 
+def _lora_delta(h, ap, which: str):
+    """A LoRA adapter's low-rank product for projection ``which`` (q or v),
+    scaled, in the reference's order."""
+    return ((h @ ap[f"a_{which}"]) @ ap[f"b_{which}"]) * ap["scaling"]
+
+
 def _peft_qkv(h, q, k, v, adapters):
     for a in adapters:
         ap = a.compute_params(h.dtype)
         if a.kind == "lora":
-            s = ap["scaling"]
-            dq = ((h @ ap["a_q"]) @ ap["b_q"]) * s
-            dv = ((h @ ap["a_v"]) @ ap["b_v"]) * s
-            q = q + dq.reshape(q.shape).to(h.dtype)
-            v = v + dv.reshape(v.shape).to(h.dtype)
+            q = q + _lora_delta(h, ap, "q").reshape(q.shape).to(h.dtype)
+            v = v + _lora_delta(h, ap, "v").reshape(v.shape).to(h.dtype)
         elif a.kind == "bitfit":
             q = q + ap["bq"]
             k = k + ap["bk"]
@@ -436,15 +451,229 @@ def _chain_step_fused(steps, pool_index, tokens, pools_k, pools_v, tables,
         else:
             x = apply_block(block, x, adapters=adapters,
                             compute_dtype=compute_dtype)
+    return _sample(x)
+
+
+def _sample(x):
+    """Greedy next tokens and their distributions from the head's (B, 1, V)
+    output."""
     logits = x[:, 0]  # (B, V)
     next_tokens = torch.argmax(logits, dim=-1).to(torch.int32)  # first max
     probs = torch.softmax(logits.float(), dim=-1)
     return next_tokens, probs
 
 
+# ---------------------------------------------------------------------------
+# one decode walk over several chains (per-block batching across apps,
+# paper §5.2): the lanes of every chain run together, hop position by hop
+# position, and each weight is read once a walk
+# ---------------------------------------------------------------------------
+
+_ATTN_PARAMS = frozenset(("ln1", "wq", "wk", "wv", "wo"))
+_FFN_PARAMS = frozenset(("ln2", "w_gate", "w_up", "w_down"))
+# the weight ops of each sublayer kind, in walk order
+_OPS = {"embed": ("embed",), "attn": ("ln1", "q", "k", "v", "wo"),
+        "ffn": ("ffn",), "head": ("head",)}
+# the parameters each op reads (q and v also read the position's LoRA)
+_OP_PARAMS = {"embed": ("embed",), "ln1": ("ln1",), "q": ("wq",),
+              "k": ("wk",), "v": ("wv",), "wo": ("wo",),
+              "ffn": tuple(sorted(_FFN_PARAMS)),
+              "head": ("final_ln", "lm_head")}
+
+
+@dataclass(eq=False)
+class ChainLayout:
+    """A chain's decode walk as sublayer positions (``chain_layout``).
+
+    ``subs``: per position ``(kind, block, lora)``: kind ``embed``,
+    ``attn`` (a ``layer`` block's attention part or an ``attention``
+    block), ``ffn`` (a ``layer`` block's FFN part or an ``ffn`` block) or
+    ``head``; ``lora`` the attention part's LoRA adapter or None.
+    ``shape``: what two chains need alike to run as one walk: each
+    position's kind, KV-pool signature and widths.  ``weights``: (position,
+    op, weight key) of every op the walk runs."""
+    subs: Tuple[Tuple[str, Block, Optional[Block]], ...]
+    shape: Tuple
+    weights: frozenset
+
+
+def _weight_key(op: str, block: Block, lora: Optional[Block]) -> Tuple:
+    """What an op reads.  Tensors are compared by identity: a split half
+    aliases its layer block's tensors, and a block that dedup made shared
+    is one object, so chains that share a weight give the same key."""
+    key = tuple(id(block.params[n]) for n in _OP_PARAMS[op])
+    if op in ("q", "v"):
+        key += (None if lora is None else lora.id,)
+    return key
+
+
+def chain_layout(steps) -> Optional[ChainLayout]:
+    """The chain's ``ChainLayout``, or None where the merged walk cannot
+    run it: an adapter other than one LoRA adapter on an attention part
+    (BitFit, bottleneck adapters: those chains keep their own megastep), or
+    a block with parameters beyond the dense block's (a surrogate's
+    recovery, MoE experts, a stitch)."""
+    subs = []
+    for block, adapters in steps:
+        if len(adapters) > 1 or any(a.kind != "lora" for a in adapters):
+            return None
+        lora = adapters[0] if adapters else None
+        keys = set(block.params)
+        if block.kind == "embed" and keys == {"embed"}:
+            subs.append(("embed", block, None))
+        elif block.kind == "lm_head" and keys == {"final_ln", "lm_head"}:
+            subs.append(("head", block, None))
+        elif block.kind == "layer" and keys == _ATTN_PARAMS | _FFN_PARAMS:
+            subs += [("attn", block, lora), ("ffn", block, None)]
+        elif block.kind == "attention" and keys == _ATTN_PARAMS:
+            subs.append(("attn", block, lora))
+        elif block.kind == "ffn" and keys == _FFN_PARAMS and lora is None:
+            subs.append(("ffn", block, None))
+        else:
+            return None
+    shape = []
+    for kind, block, _ in subs:
+        cfg = block.cfg
+        widths = (block.d_in, block.d_out, cfg.norm_eps)
+        if kind == "attn":
+            widths += (block.kv_signature, cfg.num_heads, cfg.rope_theta,
+                       cfg.sliding_window)
+        shape.append((kind,) + widths)
+    weights = frozenset((j, op, _weight_key(op, block, lora))
+                        for j, (kind, block, lora) in enumerate(subs)
+                        for op in _OPS[kind])
+    return ChainLayout(tuple(subs), tuple(shape), weights)
+
+
+class MergedChains:
+    """The single-token decode walk of several chains with one
+    ``ChainLayout.shape``, over one batch of lanes, each lane tagged with
+    its chain's index by ``lane_chain``.
+
+    At each position every weight op runs once per distinct weight set
+    (``positions``: per op, the sets in order, each with the chains that
+    read it) over every lane; each lane keeps the output of its own
+    chain's set (``torch.where``), so it computes its own chain's
+    arithmetic on its own weights.  An op whose set every chain shares runs
+    once, as does each position's paged attention call, which reads and
+    writes every lane's own pages: a lane's K/V come from its own chain's
+    projections.  With one chain the walk is ``_chain_step_fused``'s.
+
+    ``subsets``: the chain sets whose lane masks a walk needs;
+    ``n_attn``: paged attention calls a walk issues; ``lora_projections``:
+    LoRA q and v projections a walk issues, each over every lane."""
+
+    def __init__(self, layouts):
+        self.layouts = tuple(layouts)
+        if len({lay.shape for lay in self.layouts}) != 1:
+            raise ValueError("merged chains need one sublayer layout")
+        self.positions = []
+        subsets = set()
+        self.lora_projections = 0
+        for subs in zip(*(lay.subs for lay in self.layouts)):
+            kind = subs[0][0]
+            ops = {}
+            for op in _OPS[kind]:
+                sets: Dict[Tuple, Tuple[Tuple, set]] = {}
+                for c, (_, block, lora) in enumerate(subs):
+                    sets.setdefault(_weight_key(op, block, lora),
+                                    ((block, lora), set()))[1].add(c)
+                ops[op] = tuple((w, frozenset(cs)) for w, cs in sets.values())
+                subsets.update(cs for _, cs in ops[op][1:])
+                if op in ("q", "v"):
+                    self.lora_projections += sum(
+                        lora is not None for (_, lora), _ in ops[op])
+            self.positions.append((kind, ops))
+        self.subsets = tuple(sorted(subsets, key=sorted))
+        self.n_attn = sum(kind == "attn" for kind, _ in self.positions)
+
+
+def _select(op, masks, fn, *args):
+    """``fn(block, lora, *args)`` of the op's first weight set over every
+    lane, overwritten on the lanes of each further set by that set's."""
+    (w, _), *rest = op
+    out = fn(*w, *args)
+    for w, chains in rest:
+        y = fn(*w, *args)
+        m = masks[chains].view(-1, *(1,) * (y.dim() - 1))
+        out = torch.where(m, y, out)
+    return out
+
+
+def _apply_op(block, _lora, x, compute_dtype):
+    return apply_block(block, x, compute_dtype=compute_dtype)
+
+
+def _ffn_op(block, _lora, x):
+    return _ffn_sublayer(x, block.compute_params(x.dtype), block.cfg)
+
+
+def _norm_op(block, _lora, x):
+    return L.rms_norm(x, block.compute_params(x.dtype)["ln1"],
+                      block.cfg.norm_eps)
+
+
+def _proj_op(block, lora, h, name: str, impl):
+    w = block.compute_params(h.dtype)[f"w{name}"]
+    return _proj(h, w) if name == "k" else _adapted_proj(h, w, lora, name,
+                                                         impl)
+
+
+def _out_op(block, _lora, o):
+    return _out_proj(o, block.compute_params(o.dtype)["wo"])
+
+
+def _merged_attn(x, ops, masks, k_pages, v_pages, table, kv_len,
+                 attn_impl: str):
+    """An attention position of the merged walk: ``block_decode_paged``'s
+    attention sublayer, each weight op per weight set, one paged call."""
+    from repro_torch.kernels.paged_attention.ops import paged_decode_step
+
+    cfg = ops["ln1"][0][0][0].cfg
+    impl = _kernel_impl(x, attn_impl)
+    positions = kv_len[:, None]
+    h = _select(ops["ln1"], masks, _norm_op, x)
+    q = _select(ops["q"], masks, _proj_op, h, "q", impl)
+    k = _select(ops["k"], masks, _proj_op, h, "k", impl)
+    v = _select(ops["v"], masks, _proj_op, h, "v", impl)
+    q = L.apply_rope(q, positions, cfg.rope_theta)
+    k = L.apply_rope(k, positions, cfg.rope_theta)
+    o, _, _ = paged_decode_step(q[:, 0], k[:, 0], v[:, 0], k_pages, v_pages,
+                                table, kv_len, impl=attn_impl)
+    return x + _select(ops["wo"], masks, _out_op, o.to(x.dtype))[:, None]
+
+
+def _merged_step_fused(plan: MergedChains, pool_index, tokens, pools_k,
+                       pools_v, tables, kv_len, lane_chain, attn_impl: str,
+                       compute_dtype: torch.dtype):
+    """``_chain_step_fused`` over the lanes of every chain of ``plan``;
+    ``lane_chain``: (B,) each lane's chain index in the plan."""
+    masks = {}
+    for chains in plan.subsets:
+        c0, *rest = sorted(chains)
+        m = lane_chain == c0
+        for c in rest:
+            m = m | (lane_chain == c)
+        masks[chains] = m
+    x = tokens[:, None]  # (B, 1) ids; the embed position maps them
+    hop = 0
+    for kind, ops in plan.positions:
+        if kind == "attn":
+            pi = pool_index[hop]
+            x = _merged_attn(x, ops, masks, pools_k[pi], pools_v[pi],
+                             tables[hop], kv_len, attn_impl)
+            hop += 1
+        elif kind == "ffn":
+            x = _select(ops["ffn"], masks, _ffn_op, x)
+        else:
+            x = _select(ops[kind], masks, _apply_op, x, compute_dtype)
+    return _sample(x)
+
+
 def chain_decode_fused(steps, pool_index, tokens, pools_k, pools_v, tables,
                        kv_len, *, attn_impl: str = "auto",
-                       compute_dtype: torch.dtype = L.COMPUTE_DTYPE):
+                       compute_dtype: torch.dtype = L.COMPUTE_DTYPE,
+                       lane_chain: Optional[torch.Tensor] = None):
     """One full-chain decode megastep for a batch of sequences (DESIGN.md
     §2): embedding -> every attention/MLP/adapter hop (paged-KV decode with
     a single-token K/V scatter) -> lm_head -> greedy argmax + softmax, all
@@ -456,11 +685,21 @@ def chain_decode_fused(steps, pool_index, tokens, pools_k, pools_v, tables,
     uses; tables: one (B, n) page table per attention hop; kv_len: (B,)
     tokens already cached.
 
+    ``steps`` may be a ``MergedChains``: then one walk serves the lanes of
+    all its chains, ``lane_chain`` (B,) naming each lane's chain, and the
+    i-th attention hop is every chain's i-th (its tables hold each lane's
+    own pages).
+
     Returns (next_tokens, probs, pools_k, pools_v, kv_len + 1).
     """
-    next_tokens, probs = _chain_step_fused(
-        steps, pool_index, tokens, pools_k, pools_v, tables, kv_len,
-        attn_impl, compute_dtype)
+    if isinstance(steps, MergedChains):
+        next_tokens, probs = _merged_step_fused(
+            steps, pool_index, tokens, pools_k, pools_v, tables, kv_len,
+            lane_chain, attn_impl, compute_dtype)
+    else:
+        next_tokens, probs = _chain_step_fused(
+            steps, pool_index, tokens, pools_k, pools_v, tables, kv_len,
+            attn_impl, compute_dtype)
     return next_tokens, probs, tuple(pools_k), tuple(pools_v), kv_len + 1
 
 

@@ -8,8 +8,9 @@ drain) by wiring together:
   owns the waiting queue, priority/FCFS admission order, per-(block,
   adapters) run queues and preemption decisions;
 - the **executor** (``repro_torch.serving.executor.BlockExecutor``), which
-  owns the fused chain megastep, cross-app group batching on shared blocks
-  (paper §5.2) and sampling;
+  owns the fused chain megastep, its merged walk over the lanes of every
+  app whose chain shares blocks (cross-app per-block batching, paper
+  §5.2), the per-hop fallback and sampling;
 - the **KV manager** (``repro_torch.serving.kv_pool.KVManager``), which owns
   the shared paged pools, admission planning, and slot preemption with the
   §5.1 transfer-vs-recalc cost model deciding spill-to-host versus
@@ -160,7 +161,9 @@ class BlockEngine(Server):
                      "prefill_tokens", "prefill_padded_tokens",
                      # megastep graphs (BlockExecutor.fused_step)
                      "graph_replays", "graph_captures", "graph_lanes",
-                     "graph_real_lanes"):
+                     "graph_real_lanes",
+                     # plain fused lanes, and those of merged walks
+                     "fused_lanes", "merged_lanes"):
             self.metrics.counter(name)  # pre-register: snapshots start at 0
         self.metrics.set_gauge("max_block_batch", c.max_block_batch)
         self.metrics.set_gauge("spec_accept_rate", 0.0)
@@ -566,24 +569,34 @@ class BlockEngine(Server):
         # partition the survivors into fused groups by full-chain signature
         # (§5.2 batch cap applied chain-wide), refined by speculation
         # eligibility so each group steps uniformly; chains the fused
-        # megastep cannot run fall back to the per-hop dispatch path
-        fused_groups: List[List[_ReqState]] = []
+        # megastep cannot run fall back to the per-hop dispatch path.  The
+        # plain groups of chains that align and share weights then merge
+        # into one group per set of such chains: one walk of their lanes
+        # reads each shared block once a step (per-block batching across
+        # apps, §5.2); speculative groups stay per chain
+        fused_groups: List[Tuple[List[_ReqState], bool]] = []
         hop_states: List[_ReqState] = []
         if cfg.fused:
+            plain: List[List[_ReqState]] = []
             for g in self.scheduler.form_chain_groups(
                     continuing, key_fn=lambda s: chain_signature(s.steps),
                     max_batch=cfg.max_block_batch,
                     subkey_fn=_eligible if spec_on else None):
                 try:
                     ex.fused_fn(g[0].steps, chain_signature(g[0].steps))
-                    fused_groups.append(g)
                 except NotImplementedError:
                     hop_states.extend(g)
+                    continue
+                if spec_on and _eligible(g[0]):
+                    fused_groups.append((g, True))
+                else:
+                    plain.append(g)
+            fused_groups += [(g, False) for g in self._merge_plain(plain)]
         else:
             hop_states = continuing
         # groups that changed membership (finish/admission) sync to host
         # here; identical groups keep their device-resident DecodeState
-        keep = frozenset(tuple(s.rid for s in g) for g in fused_groups)
+        keep = frozenset(tuple(s.rid for s in g) for g, _ in fused_groups)
         with self.tracer.span("executor.retire",
                               groups=len(ex.decode_states.keys() - keep)):
             ex.retire_states(keep=keep)
@@ -601,10 +614,10 @@ class BlockEngine(Server):
         # one fused call per group runs the whole chain for one token (or,
         # speculating, up to spec_lookahead tokens drafted by the surrogate
         # chain and verified exactly), sampling on the device
-        for g in fused_groups:
-            spec = spec_on and _eligible(g[0])
+        for g, spec in fused_groups:
+            apps = ",".join(dict.fromkeys(s.app for s in g))
             with self.tracer.span("executor.megastep",
-                                  add_to=self._c_dispatch_ns, app=g[0].app,
+                                  add_to=self._c_dispatch_ns, app=apps,
                                   B=len(g), spec=spec):
                 if spec:
                     self._spec_group_step(g, rem)
@@ -617,6 +630,32 @@ class BlockEngine(Server):
                 s.tokens.append(s.next_token)
             self._run_hops(hop_states)
         return results
+
+    def _merge_plain(self, groups: List[List[_ReqState]]
+                     ) -> List[List[_ReqState]]:
+        """The plain fused groups, with those of each set of chains that
+        ``BlockExecutor.merge_sets`` walks together made one: their lanes
+        in group order, so each chain's lanes stay together and in order,
+        cut at ``max_block_batch``.  The other groups stay as they were."""
+        if len(groups) < 2:
+            return groups
+        sigs = [chain_signature(g[0].steps) for g in groups]
+        chains = dict(zip(sigs, (g[0].steps for g in groups)))
+        sets = self.executor.merge_sets(list(chains.items()))
+        if not sets:
+            return groups
+        where = {sig: k for k, members in enumerate(sets) for sig in members}
+        lanes: List[List[_ReqState]] = [[] for _ in sets]
+        out = []
+        for sig, g in zip(sigs, groups):
+            if sig in where:
+                lanes[where[sig]].extend(g)
+            else:
+                out.append(g)
+        cap = self.config.max_block_batch
+        for members in lanes:
+            out += [members[i:i + cap] for i in range(0, len(members), cap)]
+        return out
 
     def _spec_group_step(self, g: List[_ReqState], rem: Dict[int, int]
                          ) -> None:

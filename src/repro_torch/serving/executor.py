@@ -25,24 +25,39 @@ stream to drain).  Their durations add to ``prefill_ns`` and
 ``host_wait_ns``; ``prefill_tokens`` counts prompt positions and
 ``prefill_padded_tokens`` the positions the calls ran, buckets included.
 
+Merged megastep (per-block batching across apps, paper §5.2).  The
+engine hands ``fused_step`` one group over the plain lanes of every chain
+that ``merge_sets`` finds aligned with the others and sharing a weight
+with them: a ``MergedChains`` walk (``core/blocks.py``) serves them all in
+one call, each weight set read once, each lane tagged with its chain
+(``lane_chain``) and keeping its own chain's outputs where the chains'
+weights differ.  A group of one chain runs its own chain's megastep, as
+do speculative groups.  Counters: ``fused_lanes`` (real lanes of every
+plain fused group call) and ``merged_lanes`` (those of calls that walked
+more than one chain).
+
 Megastep graphs.  A fused group runs its megastep over the static buffers
-of a ``MegastepGraph``, one per (chain signature, lane bucket): the
-group's lanes padded to a power of two of at least 8, or to ``max_lanes``
-where that is fewer, its page tables to ``table_width`` pages.  Pad lanes
-hold token 0, kv length 0 and tables of ``TRASH_PAGE``, and their kv
-length stays 0, so they write only the trash page.  The step writes its
-next tokens and ``kv_len + 1`` back into the buffers, so a stable group's
-state stays there; a group that re-forms is staged into them again.  On a
-card, the first call of a bucket runs the megastep eagerly on a side
-stream (which also fills every host-side cache) and then captures it as a
-CUDA graph in the executor's memory pool; later calls replay the graph:
-the same kernels, the same work, no host issue.  On the CPU a replay
-calls the megastep on the buffers.  A signature's buckets share one
-probabilities buffer, so a signature binds one live group at a time: a
-second live group of the signature, speculative steps, and groups with a
-row wider than ``table_width`` run the eager megastep.  A replay adds the
-launches its graph recorded to the kernel modules' ``launches`` counters,
-and a capture takes back the ones it recorded without running them.
+of a ``MegastepGraph``, one per (key, lane bucket), the key being the
+group's chain signature or, for a merged group, ``("merged", its sorted
+chain signatures)``: the group's lanes padded to a power of two of at
+least 8, or to ``max_lanes`` where that is fewer, its page tables to
+``table_width`` pages, and a merged group's lanes tagged with their
+chains in one more int32 row.  So a merged group's lanes may be in any
+mix of its chains without another capture.  Pad lanes hold token 0, kv
+length 0 and tables of ``TRASH_PAGE``, and their kv length stays 0, so
+they write only the trash page.  The step writes its next tokens and
+``kv_len + 1`` back into the buffers, so a stable group's state stays
+there; a group that re-forms is staged into them again.  On a card, the
+first call of a bucket runs the megastep eagerly on a side stream (which
+also fills every host-side cache) and then captures it as a CUDA graph in
+the executor's memory pool; later calls replay the graph: the same
+kernels, the same work, no host issue.  On the CPU a replay calls the
+megastep on the buffers.  A key's buckets share one probabilities
+buffer, so a key binds one live group at a time: a second live group of
+the key, speculative steps, and groups with a row wider than
+``table_width`` run the eager megastep.  A replay adds the launches its
+graph recorded to the kernel modules' ``launches`` counters, and a
+capture takes back the ones it recorded without running them.
 Counters: ``graph_replays`` (group calls served by a replay),
 ``graph_captures`` (a bucket's first call), ``graph_lanes`` (lanes the
 replays ran, pads included) and ``graph_real_lanes``.
@@ -58,11 +73,14 @@ import torch
 
 from repro_torch.core.blocks import (
     Block,
+    ChainLayout,
+    MergedChains,
     apply_block,
     block_decode_paged,
     block_prefill_raw,
     chain_decode_fused,
     chain_decode_spec_fused,
+    chain_layout,
     chain_prefill_fused,
     chain_signature,
 )
@@ -124,22 +142,27 @@ class DecodeState:
     buffered_counts: List[int] = field(default_factory=list)  # per lane
     probs: Optional[torch.Tensor] = None  # (B, V) probs of latest next_token
     graph: Optional["MegastepGraph"] = None  # the bucket it is bound to
+    walk: Tuple = ()          # (fn, pool_keys, attn calls, LoRA calls) a call
+    lane_chain: Optional[torch.Tensor] = None  # (B,) of a merged group
 
 
 @dataclass
 class MegastepGraph:
-    """Static decode state of one (chain signature, lane bucket) and, on a
-    card, the CUDA graph of the megastep over it.  ``ints`` is one int32
+    """Static decode state of one (key, lane bucket) and, on a card, the
+    CUDA graph of the megastep over it.  ``ints`` is one int32
     buffer, so a forming group is staged in one copy; the other int32
     tensors are views into it."""
     lanes: int                        # the bucket: lanes the step runs
-    ints: torch.Tensor                # tables, tokens, kv_len, live
+    ints: torch.Tensor                # tables, tokens, kv_len, live, and
+    #   for a merged group lane_chain
     tables: Tuple[torch.Tensor, ...]  # (lanes, W) page table per attn hop
     tokens: torch.Tensor              # (lanes,) pending tokens, then next
     kv_len: torch.Tensor              # (lanes,) cached, then kv_len + 1
     live: torch.Tensor                # (lanes,) 1 on a real lane, 0 on a pad
-    probs: torch.Tensor               # (lanes, V) fp32: rows of the chain's
-    #   buffer, which every bucket of the signature shares
+    probs: torch.Tensor               # (lanes, V) fp32: rows of the key's
+    #   buffer, which every bucket of the key shares
+    lane_chain: Optional[torch.Tensor] = None  # (lanes,) a merged group's
+    #   lanes' chains (pads: 0)
     graph: Optional[object] = None    # torch.cuda.CUDAGraph, once captured
     keep: Tuple = ()                  # other buffers the graph points into
     launches: Tuple[int, ...] = ()    # per _GRAPH_KERNELS, what it holds
@@ -193,6 +216,10 @@ class BlockExecutor:
         self._c_graph_captures = self.metrics.counter("graph_captures")
         self._c_graph_lanes = self.metrics.counter("graph_lanes")
         self._c_graph_real = self.metrics.counter("graph_real_lanes")
+        # real lanes of the plain fused group calls, and of those that
+        # walked the lanes of more than one chain
+        self._c_fused_lanes = self.metrics.counter("fused_lanes")
+        self._c_merged_lanes = self.metrics.counter("merged_lanes")
         # per-block batch occupancy: every batched device call observes its
         # batch width (compare p50/mean against EngineConfig.max_block_batch)
         self._h_group_batch = self.metrics.histogram("group_batch")
@@ -201,6 +228,11 @@ class BlockExecutor:
         self._fused_fns: Dict[Tuple, Tuple[object, Tuple, int]] = {}
         # speculative megastep per (chain sig, surrogate sig, lookahead)
         self._spec_fns: Dict[Tuple, Tuple[object, Tuple, int]] = {}
+        # merged megastep per ("merged", sorted chain sigs): (fn, pool_keys,
+        # plan); each chain's layout; the merge sets per tuple of chains
+        self._merged_fns: Dict[Tuple, Tuple[object, Tuple, MergedChains]] = {}
+        self._layouts: Dict[Tuple, Optional[ChainLayout]] = {}
+        self._merge_sets: Dict[Tuple, List[Tuple]] = {}
         # device-resident decode state per fused group, keyed by rid tuple
         self.decode_states: Dict[Tuple[int, ...], DecodeState] = {}
         self._rid_group: Dict[int, Tuple[int, ...]] = {}
@@ -211,10 +243,10 @@ class BlockExecutor:
         self._table_cache: OrderedDict[Tuple, torch.Tensor] = OrderedDict()
         self.table_width = table_width
         self.max_lanes = max_lanes
-        # megastep graphs per (chain signature, lane bucket); each
-        # signature's (max_lanes, V) fp32 probabilities buffer, shared by
-        # its buckets; the signatures a live group is bound to; on a card,
-        # the graphs' memory pool and capture stream
+        # megastep graphs per (key, lane bucket); each key's (max_lanes, V)
+        # fp32 probabilities buffer, shared by its buckets; the keys a live
+        # group is bound to; on a card, the graphs' memory pool and capture
+        # stream
         self.graphs: Dict[Tuple, MegastepGraph] = {}
         self._graph_probs: Dict[Tuple, torch.Tensor] = {}
         self._bound: set = set()
@@ -406,7 +438,7 @@ class BlockExecutor:
         impl, dtype = self.attn_impl, self.compute_dtype
         pool_keys, pool_index = self._pool_layout(steps)
 
-        def fn(tok, pools_k, pools_v, tables, kv_len):
+        def fn(tok, pools_k, pools_v, tables, kv_len, lane_chain=None):
             # the slabs are written in place (the reference donates them)
             return chain_decode_fused(steps, pool_index, tok, pools_k,
                                       pools_v, tables, kv_len,
@@ -415,6 +447,92 @@ class BlockExecutor:
         out = (fn, tuple(pool_keys), len(pool_index))
         self._fused_fns[sig] = out
         return out
+
+    def _layout(self, sig, steps) -> Optional[ChainLayout]:
+        if sig not in self._layouts:
+            self._layouts[sig] = chain_layout(steps)
+        return self._layouts[sig]
+
+    def merge_sets(self, chains) -> List[Tuple]:
+        """The sets of chains that one merged megastep walks together.
+        ``chains``: (signature, steps) of each chain whose plain fused
+        groups run this step, in order.  Chains whose sublayer layouts align
+        (``ChainLayout.shape``) and that share a weight, directly or through
+        another chain of the set, form a set; a chain that shares nothing,
+        or that the merged walk cannot run, keeps its own megastep.
+        Returns the sets of two chains or more, each its signatures in
+        ``chains``' order."""
+        sigs = tuple(sig for sig, _ in chains)
+        cached = self._merge_sets.get(sigs)
+        if cached is not None:
+            return cached
+        lays = [self._layout(sig, steps) for sig, steps in chains]
+        root = list(range(len(lays)))
+
+        def find(i):
+            while root[i] != i:
+                i = root[i]
+            return i
+
+        for i, a in enumerate(lays):
+            for j in range(i):
+                b = lays[j]
+                if a is not None and b is not None and a.shape == b.shape \
+                        and a.weights & b.weights:
+                    root[find(i)] = find(j)
+        sets: Dict[int, List] = {}
+        for i, sig in enumerate(sigs):
+            sets.setdefault(find(i), []).append(sig)
+        out = [tuple(m) for m in sets.values() if len(m) > 1]
+        self._merge_sets[sigs] = out
+        return out
+
+    def merged_fn(self, key, chains):
+        """One merged megastep callable per set of chains (``key``:
+        ``("merged", sorted signatures)``; ``chains``: their steps, in that
+        order); returns (fn, pool_keys, plan), ``plan`` the
+        ``MergedChains`` walk, whose ``lane_chain`` indexes ``chains``."""
+        cached = self._merged_fns.get(key)
+        if cached is not None:
+            return cached
+        impl, dtype = self.attn_impl, self.compute_dtype
+        plan = MergedChains([self._layout(sig, steps)
+                             for sig, steps in zip(key[1], chains)])
+        pool_keys, pool_index = self._pool_layout(chains[0])
+
+        def fn(tok, pools_k, pools_v, tables, kv_len, lane_chain):
+            # the slabs are written in place (the reference donates them)
+            return chain_decode_fused(plan, pool_index, tok, pools_k,
+                                      pools_v, tables, kv_len,
+                                      attn_impl=impl, compute_dtype=dtype,
+                                      lane_chain=lane_chain)
+
+        out = (fn, tuple(pool_keys), plan)
+        self._merged_fns[key] = out
+        return out
+
+    def _group_walk(self, states):
+        """The megastep of a fused group: (key, (fn, pool_keys, paged calls,
+        LoRA projections) a call, each lane's chain index in the key or
+        None, each lane's attention-hop step indices).  A group of one
+        chain: its signature and its chain's megastep; of several: the
+        merged walk of ``("merged", sorted signatures)``."""
+        sigs = [chain_signature(s.steps) for s in states]
+        chains = dict(zip(sigs, (s.steps for s in states)))
+        hops = {sig: [i for i, (b, _) in enumerate(steps) if b.has_kv]
+                for sig, steps in chains.items()}
+        lane_steps = [hops[sig] for sig in sigs]
+        if len(chains) == 1:
+            steps = states[0].steps
+            fn, pool_keys, n_attn = self.fused_fn(steps, sigs[0])
+            return (sigs[0], (fn, pool_keys, n_attn,
+                              _lora_projections(steps)), None, lane_steps)
+        order = tuple(sorted(chains))
+        key = ("merged", order)
+        fn, pool_keys, plan = self.merged_fn(key, [chains[s] for s in order])
+        index = {sig: c for c, sig in enumerate(order)}
+        return (key, (fn, pool_keys, plan.n_attn, plan.lora_projections),
+                [index[sig] for sig in sigs], lane_steps)
 
     def spec_fn(self, steps, sur_steps, sig, lookahead: int):
         """Draft-verify megastep (paper §5.2) per (chain signature,
@@ -498,13 +616,19 @@ class BlockExecutor:
             s.kv_len = ds.kv_len0[i] + ds.buffered_counts[i]
 
     @staticmethod
-    def _host_tables(states: List, kv: KVManager) -> List[np.ndarray]:
+    def _host_tables(states: List, kv: KVManager,
+                     lane_steps: Optional[List[List[int]]] = None
+                     ) -> List[np.ndarray]:
         """One (B, n) page table per attention hop of the group's chain,
-        on the host."""
-        return [kv.pool_for(block)[1].block_table([(s.rid, i)
-                                                   for s in states])
-                for i, (block, _) in enumerate(states[0].steps)
-                if block.has_kv]
+        on the host.  ``lane_steps[i]``: the step index of each attention
+        hop in lane i's chain, where the lanes' chains differ: the i-th
+        table then holds each lane's pages at its own chain's i-th hop."""
+        hops = [i for i, (b, _) in enumerate(states[0].steps) if b.has_kv]
+        if lane_steps is None:
+            lane_steps = [hops] * len(states)
+        return [kv.pool_for(states[0].steps[i][0])[1].block_table(
+            [(s.rid, h[p]) for s, h in zip(states, lane_steps)])
+            for p, i in enumerate(hops)]
 
     def _tables(self, states: List, kv: KVManager) -> Tuple[torch.Tensor, ...]:
         """One (B, n) page table per attention hop of the group's chain."""
@@ -515,31 +639,37 @@ class BlockExecutor:
     def _make_state(self, states: List, kv: KVManager,
                     bind: bool = False) -> DecodeState:
         """The group's DecodeState.  With ``bind`` (a plain fused step) it
-        is bound to its megastep graph where its signature is free, and
-        staged into that graph's buffers."""
-        steps = states[0].steps
-        sig = chain_signature(steps)
+        is bound to its megastep graph where its key is free, and staged
+        into that graph's buffers."""
+        sig, walk, chain, lane_steps = self._group_walk(states)
         rids = tuple(s.rid for s in states)
         B = len(states)
-        host = self._host_tables(states, kv)
-        g = self._free_graph(sig, steps, B, host) if bind else None
+        host = self._host_tables(states, kv, lane_steps)
+        g = (self._free_graph(sig, states[0].steps, B, host,
+                              chain is not None) if bind else None)
+        lane_chain = None
         if g is not None:
             with self._wait("stage"):
-                self._stage(g, states, host)
+                self._stage(g, states, host, chain)
             self._bound.add(sig)
             g.views = (g.tokens[:B], g.kv_len[:B], g.probs[:B])
             next_token, kv_len = g.views[:2]
             tables = tuple(t[:B] for t in g.tables)
+            if chain is not None:
+                lane_chain = g.lane_chain[:B]
         else:
             with self._wait("stage"):
                 tables = tuple(self._tensor(t) for t in host)
                 next_token = self._tensor([s.next_token for s in states])
                 kv_len = self._tensor([s.kv_len for s in states])
+                if chain is not None:
+                    lane_chain = self._tensor(chain)
         ds = DecodeState(
             rids=rids, sig=sig, states=list(states),
             next_token=next_token, kv_len=kv_len, tables=tables,
             kv_len0=[s.kv_len for s in states],
-            buffered_counts=[0] * B, graph=g)
+            buffered_counts=[0] * B, graph=g, walk=walk,
+            lane_chain=lane_chain)
         self.decode_states[rids] = ds
         for r in rids:
             self._rid_group[r] = rids
@@ -547,11 +677,12 @@ class BlockExecutor:
 
     # -- megastep graphs ---------------------------------------------------
 
-    def _free_graph(self, sig, steps, B: int, host: List[np.ndarray]
-                    ) -> Optional[MegastepGraph]:
+    def _free_graph(self, sig, steps, B: int, host: List[np.ndarray],
+                    merged: bool = False) -> Optional[MegastepGraph]:
         """The megastep graph of (``sig``, the bucket of ``B``), made on
         first use; None where the group runs eagerly: another live group
-        of the signature is bound, or a row is wider than the tables."""
+        of the key is bound, or a row is wider than the tables.  A
+        ``merged`` group's graph also holds its lanes' chains."""
         if sig in self._bound \
                 or any(t.shape[1] > self.table_width for t in host):
             return None
@@ -560,16 +691,17 @@ class BlockExecutor:
         if g is None:
             g = self.graphs[key] = self._new_graph(
                 sig, key[1], len(host),
-                steps[-1][0].params["lm_head"].shape[-1])
+                steps[-1][0].params["lm_head"].shape[-1], merged)
         return g
 
-    def _new_graph(self, sig, lanes: int, hops: int,
-                   vocab: int) -> MegastepGraph:
+    def _new_graph(self, sig, lanes: int, hops: int, vocab: int,
+                   merged: bool = False) -> MegastepGraph:
         W = self.table_width
-        ints = torch.zeros(hops * lanes * W + 3 * lanes, dtype=torch.int32,
-                           device=self.device)
+        rows = 4 if merged else 3
+        ints = torch.zeros(hops * lanes * W + rows * lanes,
+                           dtype=torch.int32, device=self.device)
         tabs = ints[:hops * lanes * W].view(hops, lanes, W)
-        rest = ints[hops * lanes * W:].view(3, lanes)
+        rest = ints[hops * lanes * W:].view(rows, lanes)
         probs = self._graph_probs.get(sig)
         if probs is None:
             probs = self._graph_probs[sig] = torch.zeros(
@@ -578,24 +710,28 @@ class BlockExecutor:
         return MegastepGraph(
             lanes=lanes, ints=ints, tables=tuple(tabs.unbind(0)),
             tokens=rest[0], kv_len=rest[1], live=rest[2],
-            probs=probs[:lanes])
+            probs=probs[:lanes], lane_chain=rest[3] if merged else None)
 
     def _stage(self, g: MegastepGraph, states: List,
-               host: List[np.ndarray]) -> None:
+               host: List[np.ndarray],
+               chain: Optional[List[int]] = None) -> None:
         """Copy a forming group into rows [:B] of the graph's buffers and
         reset the pad lanes (token 0, kv_len 0, tables of the trash page,
-        not live), in one copy: from pinned memory on a card, so the host
-        does not wait for the stream."""
+        not live, chain 0), in one copy: from pinned memory on a card, so
+        the host does not wait for the stream.  ``chain``: a merged
+        group's lanes' chains."""
         B, lanes, W = len(states), g.lanes, self.table_width
         buf = np.zeros(g.ints.numel(), np.int32)
         tabs = buf[:len(host) * lanes * W].reshape(len(host), lanes, W)
         tabs[:] = TRASH_PAGE
         for hop, t in enumerate(host):
             tabs[hop, :B, :t.shape[1]] = t
-        rest = buf[len(host) * lanes * W:].reshape(3, lanes)
+        rest = buf[len(host) * lanes * W:].reshape(-1, lanes)
         rest[0, :B] = [s.next_token for s in states]
         rest[1, :B] = [s.kv_len for s in states]
         rest[2, :B] = 1
+        if chain is not None:
+            rest[3, :B] = chain
         src = torch.from_numpy(buf)
         if g.ints.is_cuda:
             # the pinned block is not reused before the copy has run
@@ -608,7 +744,8 @@ class BlockExecutor:
         """The megastep over the graph's buffers: the eager megastep, then
         its outputs written back, so a stable group's next step finds its
         state in place; pad lanes' kv_len stays 0."""
-        nxt, probs, _, _, kv_len = fn(g.tokens, pk, pv, g.tables, g.kv_len)
+        nxt, probs, _, _, kv_len = fn(g.tokens, pk, pv, g.tables, g.kv_len,
+                                      g.lane_chain)
         g.probs.copy_(probs)
         g.tokens.copy_(nxt)
         torch.mul(kv_len, g.live, out=g.kv_len)
@@ -679,26 +816,30 @@ class BlockExecutor:
     def fused_step(self, states: List, kv: KVManager) -> None:
         """One token for one fused group: a single chain call with sampling
         on the device, replayed from its megastep graph where the group is
-        bound to one.  The pending token and kv lengths stay
-        device-resident between calls."""
+        bound to one.  A group over the lanes of several chains (the
+        engine forms it from ``merge_sets``) runs their merged walk.  The
+        pending token and kv lengths stay device-resident between calls."""
         rids = tuple(s.rid for s in states)
         ds = self.decode_states.get(rids)
         if ds is None:
             ds = self._make_state(states, kv, bind=True)
-        fn, pool_keys, n_attn = self.fused_fn(states[0].steps, ds.sig)
+        fn, pool_keys, n_attn, n_lora = ds.walk
         pools = [kv.pools[k] for k in pool_keys]
         pk = tuple(p.k_pages for p in pools)
         pv = tuple(p.v_pages for p in pools)
+        B = len(states)
         self._c_group_calls.inc()
         self._c_attn_calls.inc(n_attn)
-        self._c_lora_calls.inc(_lora_projections(states[0].steps))
-        self._h_group_batch.observe(len(states))
-        B = len(states)
+        self._c_lora_calls.inc(n_lora)
+        self._h_group_batch.observe(B)
+        self._c_fused_lanes.inc(B)
+        if ds.lane_chain is not None:
+            self._c_merged_lanes.inc(B)
         if ds.graph is not None:
             emitted = self._graph_step(ds, fn, pk, pv)
         else:
             nxt, probs, _, _, kv_len = fn(ds.next_token, pk, pv, ds.tables,
-                                          ds.kv_len)
+                                          ds.kv_len, ds.lane_chain)
             emitted = ds.next_token[:, None]
             ds.next_token, ds.probs, ds.kv_len = nxt, probs, kv_len
         ds.emitted.append((emitted, np.ones(B, np.int64)))
