@@ -100,14 +100,18 @@ def main(argv=None) -> int:
                   and rec["w0"] <= r["due"] < rec["w_end"])
         done = sum(1 for r in rec["requests"] if rec["w0"] < r.get(
             "done", 0) <= rec["w1"])
-        ttft, itl = percentile(ttft_s(rec), 90), percentile(itl_s(rec), 95)
+        ttft = percentile(ttft_s(rec), 90)
+        gaps = itl_s(rec)
+        itl50, itl99 = percentile(gaps, 50), percentile(gaps, 99)
         arrivals = [r for r in reqs if r.due and r.due > 0]
         offered = rate * sum(r.gen_len for r in arrivals) / len(arrivals)
         output = tokens_delivered(rec) / (rec["w1"] - rec["w0"])
         print(json.dumps({
             "rate_rps": rate, "due_in_window": due, "finished_in_window": done,
             "offered_tok_s": offered, "output_tok_s": output,
-            "ttft_p90_ms": ttft and ttft * 1e3, "itl_p95_ms": itl and itl * 1e3,
+            "ttft_p90_ms": ttft and ttft * 1e3,
+            "itl_p50_ms": itl50 and itl50 * 1e3,
+            "itl_p99_ms": itl99 and itl99 * 1e3,
             "inflight_first_quarter": first, "inflight_last_quarter": last,
             "waiting_at_end": waiting,
             "step_p50_ms": (percentile(rec["step_wall_s"], 50) or 0) * 1e3,

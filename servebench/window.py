@@ -8,7 +8,7 @@ the serving loop stopped, at or after w0 + --seconds.
 """
 from __future__ import annotations
 
-from typing import List, Optional
+from typing import List, Optional, Tuple
 
 import numpy as np
 
@@ -31,16 +31,22 @@ def ttft_s(rec: dict) -> List[float]:
     return out
 
 
-def itl_s(rec: dict) -> List[float]:
-    """Every gap between consecutive deliveries of a request's tokens that
-    ends in the window.  Tokens delivered by one step arrive together, so
-    they make one delivery."""
+def itl_pairs(rec: dict) -> List[Tuple[float, float]]:
+    """(a, b) for every pair of consecutive deliveries of a request's
+    tokens whose later one, b, lies in the window.  Tokens delivered by one
+    step arrive together, so they make one delivery."""
     w0, w1 = rec["w0"], rec["w1"]
     out = []
     for r in rec["requests"]:
         ts = sorted(set(r["times"]))
-        out += [b - a for a, b in zip(ts, ts[1:]) if w0 < b <= w1]
+        out += [(a, b) for a, b in zip(ts, ts[1:]) if w0 < b <= w1]
     return out
+
+
+def itl_s(rec: dict) -> List[float]:
+    """Every gap between consecutive deliveries of a request's tokens that
+    ends in the window."""
+    return [b - a for a, b in itl_pairs(rec)]
 
 
 def tokens_delivered(rec: dict) -> int:
